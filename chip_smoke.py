@@ -3,24 +3,33 @@
 
     python3 chip_smoke.py
 
-Three phases, in order; any failure exits non-zero and no phase's error
+Four phases, in order; any failure exits non-zero and no phase's error
 is caught:
 
 1. Build: compile every Hopper kernel of ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, in parallel) into ``build/kernels``.
 2. Kernels: on the card, hold each kernel against its plain PyTorch
-   version at the main path's shapes (plus int4, ragged-T and
+   version at the main path's shapes (plus int4, ragged-T, staircase and
    scratch-page cases), and time it, its plain version and, where one
    PyTorch call computes the same function, that call.
 3. Runtime: serve the pinned 8-request pattern PD-separated on the paged
    arena of ``llama3.1-8b`` at full width with seeded random bf16
    weights, count each kernel's launches on that run, and check the
    paged kernel path against the plain path on one full-width decode.
+4. Speculative runtime: serve the same pattern the same way with
+   speculation, ``spec_k=4``: first with n-gram lookahead (random weights
+   repeat no n-gram of their output, so it offers no drafts: recorded,
+   not required), then with the two-model draft (the target as its own
+   draft), which drafts every step; count the verify kernel's launches on
+   that run, check the page tables, and hold one full-width W = 5 verify
+   step through the kernel against the plain path.
 
-Prints per-request TTFT/JCT/wire bytes/breakdowns, one JSON line of
-kernel results, the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.  Exits with an error, printing no
-result, when there is no CUDA device or the port's sources are missing.
+Prints per-request TTFT/JCT/wire bytes/breakdowns, the speculative run's
+verify steps, committed tokens and accept rates beside the plain run's
+TTFT and JCT, one JSON line of kernel results, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.  Exits
+with an error, printing no result, when there is no CUDA device or the
+port's sources are missing.
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ SCENARIO = [
 
 ARCH, SEQ, DECODE_TOKENS, PAGE_SIZE, SLOTS = "llama3.1-8b", 1024, 30, 16, 6
 GROUP = 64
+SPEC_K = 4                    # phase 4: verify steps of up to W = 5 tokens
 
 
 def check(ok: bool, what: str) -> None:
@@ -59,20 +69,24 @@ def check(ok: bool, what: str) -> None:
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each."""
+    """Device time of one call: CUDA events around ``iters`` back-to-back
+    calls, over the count, the median of three such runs.  Back to back,
+    the card does not wait on the host between launches unless the host
+    is the slower of the two."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
+    runs = []
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
 
 
 def bound(nbytes: float, flops: float):
@@ -273,19 +287,177 @@ def kernel_phase(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: the verify kernel's two entries
+# ---------------------------------------------------------------------------
+def verify_kernel_phase(torch, dev):
+    """paged_verify_attention: the arena entry at the speculative main
+    path's shapes (W = 2 and 5, bf16 and int8 pages), the Pallas
+    interface (int8 / int4, W = 1 against paged_attention, the staircase,
+    the scratch page).  Returns its results entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    cfg = get_config(ARCH)
+    hkv, d = cfg.kv_heads, cfg.resolved_head_dim
+    gq = cfg.num_heads // cfg.kv_heads
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pps = -(-(SEQ + DECODE_TOKENS + 2 + SPEC_K) // PAGE_SIZE)
+    n_pages = SLOTS * pps + 1
+    view = pps * PAGE_SIZE
+    shape = (n_pages, PAGE_SIZE, hkv, d)
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    kc = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    vc = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    grp = torch.rand(shape[:-1] + (d // GROUP,), generator=gen, device=dev)
+    ks = (grp * 0.02 + 1e-3).half().float().repeat_interleave(GROUP, -1)
+    vs = (grp.flip(0) * 0.02 + 1e-3).half().float().repeat_interleave(
+        GROUP, -1)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm.reshape(SLOTS, pps).to(torch.int32)
+    # committed prefixes 6..26 tokens into decode, a fresh prefill, a
+    # parked row at view_len - W (set per width below)
+    base = [SEQ + 16, SEQ + 6, SEQ, 0, SEQ + 26, SEQ]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    widths, worst = {}, 0.0
+    for w in (2, SPEC_K + 1):
+        lens = torch.tensor(base[:3] + [view - w] + base[4:],
+                            dtype=torch.int32, device=dev)
+        q = torch.randn(SLOTS, hkv, gq, w, d, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        for residency, qlens in (
+                ("bf16 pages", torch.zeros(SLOTS, dtype=torch.int32,
+                                           device=dev)),
+                ("int8 pages", torch.full((SLOTS,), view, dtype=torch.int32,
+                                          device=dev)),
+                ("mixed", torch.tensor([SEQ, 0, SEQ, 0, 0, SEQ],
+                                       dtype=torch.int32, device=dev))):
+            args = (q, kp, vp, kc, ks, vc, vs, bt, lens, qlens)
+            out, m, l = ops.paged_verify_attention_arena_op(*args)
+            r_out, r_m, r_l = ref.paged_verify_attention_arena_ref(*args)
+            ulps = bf16_ulps(torch, out, r_out)
+            m_rel = float(((m - r_m).abs()
+                           / r_m.abs().clamp_min(1e-30)).max())
+            l_rel = float(((l - r_l).abs()
+                           / r_l.abs().clamp_min(1e-30)).max())
+            err = float((out.float() - r_out.float()).abs().max())
+            print(f"paged_verify_attention_arena W={w} {residency}: out "
+                  f"{ulps} bf16 ulps (max|err| {err:.3g}; tolerance 2 "
+                  f"ulps), m rel {m_rel:.3g}, l rel {l_rel:.3g} (tolerance "
+                  f"1e-5)")
+            check(ulps <= 2 and m_rel <= 1e-5 and l_rel <= 1e-5,
+                  f"paged_verify_attention_arena W={w} {residency}")
+            worst = max(worst, err)
+        # timed on the mixed residency of the main path
+        seen = lens.long().sum().item()
+        quant = torch.minimum(qlens, lens).long().sum().item()
+        row = hkv * d
+        kv_bytes = 2 * row * ((seen - quant) * 2 + quant * (1 + 4))
+        io_bytes = q.numel() * 2 * 2 + m.numel() * 8 + bt.numel() * 4
+        flops = 4 * gq * w * row * seen
+        g = bt.long()
+        use_q = (torch.arange(view, device=dev)[None, :]
+                 < qlens[:, None])[..., None, None]
+
+        def dense_view(pool, codes, scales):
+            deq = (codes.float() * scales).to(torch.bfloat16)[g]
+            return torch.where(use_q, deq.reshape(SLOTS, view, hkv, d),
+                               pool[g].reshape(SLOTS, view, hkv, d)
+                               ).transpose(1, 2)
+
+        kview, vview = dense_view(kp, kc, ks), dense_view(vp, vc, vs)
+        qs = q.reshape(SLOTS, hkv * gq, w, d)
+        mask = (torch.arange(view, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        entry = dict(
+            ms=time_ms(torch, lambda: ops.paged_verify_attention_arena_op(
+                *args)),
+            plain_ms=time_ms(
+                torch, lambda: ref.paged_verify_attention_arena_ref(*args),
+                iters=5),
+            library_ms=time_ms(torch, lambda: sdpa(qs, kview, vview,
+                                                   attn_mask=mask,
+                                                   enable_gqa=True)))
+        entry["bound_ms"], entry["bound_by"] = bound(kv_bytes + io_bytes,
+                                                     flops)
+        widths[f"W={w}"] = entry
+
+    # ---- the Pallas interface: int8 / int4, W = 1, staircase, scratch ----
+    pallas = {}
+    pshape = (n_pages, hkv, PAGE_SIZE, d)
+    w = SPEC_K + 1
+    p_lens = torch.tensor([SEQ + 16, 1, SEQ, 17, SEQ + 26, SEQ // 2],
+                          dtype=torch.int32, device=dev)
+    qf = torch.randn(SLOTS, hkv, w, gq, d, generator=gen, device=dev)
+    for bits in (8, 4):
+        kx = torch.randn(pshape, generator=gen, device=dev)
+        vx = torch.randn(pshape, generator=gen, device=dev)
+        kcq, ksq = ref.quant_pack_ref(kx, bits, GROUP)
+        vcq, vsq = ref.quant_pack_ref(vx, bits, GROUP)
+        pargs = (qf, kcq, ksq, vcq, vsq, bt, p_lens)
+        got = ops.paged_verify_attention_op(*pargs, bits=bits, group=GROUP)
+        want = ref.paged_verify_attention_ref(*pargs, bits=bits, group=GROUP)
+        perr = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, atol=2e-5, rtol=1e-4))
+        one = ops.paged_verify_attention_op(qf[:, :, :1].contiguous(),
+                                            *pargs[1:], bits=bits,
+                                            group=GROUP)
+        dec = ops.paged_attention_op(qf[:, :, 0].contiguous(), *pargs[1:],
+                                     bits=bits, group=GROUP)
+        w1 = bool(torch.allclose(one[:, :, 0], dec, atol=2e-5, rtol=1e-4))
+        # the staircase: the last verify position's K/V moves only the
+        # last row
+        kz = kcq.clone()
+        t = int(p_lens[0]) + w - 2
+        kz[bt[0, t // PAGE_SIZE], :, t % PAGE_SIZE] = (
+            0x77 if bits == 4 else 127)
+        moved = ops.paged_verify_attention_op(qf, kz, *pargs[2:],
+                                              bits=bits, group=GROUP)
+        blind = bool(torch.equal(moved[0, :, :w - 1], got[0, :, :w - 1])
+                     and not torch.equal(moved[0, :, w - 1],
+                                         got[0, :, w - 1]))
+        # the scratch page, poisoned, behind unmapped entries
+        kpz, vpz = kcq.clone(), vcq.clone()
+        kpz[0] = 0x77 if bits == 4 else 127
+        vpz[0] = 0x88 if bits == 4 else -128
+        bt0 = bt.clone()
+        bt0[1, 1:] = 0
+        a = ops.paged_verify_attention_op(qf, kcq, ksq, vcq, vsq, bt0,
+                                          p_lens, bits=bits, group=GROUP)
+        b = ops.paged_verify_attention_op(qf, kpz, ksq, vpz, vsq, bt0,
+                                          p_lens, bits=bits, group=GROUP)
+        inert = bool(torch.equal(a, b))
+        print(f"paged_verify_attention (Pallas interface) int{bits} W={w}: "
+              f"max|err| {perr:.3g} (tolerance atol 2e-5 + rtol 1e-4), W=1 "
+              f"equals paged_attention: {w1}, staircase blind: {blind}, "
+              f"scratch page inert: {inert}")
+        check(ok and w1 and blind and inert,
+              f"paged_verify_attention int{bits}")
+        pallas[f"int{bits}"] = dict(
+            max_abs_err=perr,
+            ms=time_ms(torch, lambda: ops.paged_verify_attention_op(
+                *pargs, bits=bits, group=GROUP)),
+            plain_ms=time_ms(torch, lambda: ref.paged_verify_attention_ref(
+                *pargs, bits=bits, group=GROUP), iters=5))
+    main = dict(widths[f"W={SPEC_K + 1}"])
+    main["max_abs_err"] = worst
+    main["widths"] = widths
+    main["pallas_interface"] = pallas
+    return main
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the serving runtime at full width
 # ---------------------------------------------------------------------------
-def runtime_phase(torch, dev):
-    """Serve SCENARIO PD-separated on the paged arena; returns
-    (runtime, served requests, wall seconds, launch counts)."""
+def model_setup(torch, dev):
+    """Seeded random bf16 weights at full width, and one warm-up prefill
+    and decode step (cuBLAS's lazy initialisation, which a long-running
+    server pays once).  Returns (cfg, params)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.profiles import Profile
-    from repro_torch.core.strategy import StrategyConfig
-    from repro_torch.kernels import launches, reset_launches
     from repro_torch.models.transformer import (
         decode_step, init_cache, init_params, prefill)
-    from repro_torch.serving import GBPS, BandwidthTrace, SchedulerConfig
-    from repro_torch.serving.engine import RuntimeConfig, ServingRuntime
 
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
@@ -295,6 +467,33 @@ def runtime_phase(torch, dev):
     n_params = sum(p.numel() for p in _leaves(params))
     print(f"{ARCH}: {n_params / 1e9:.3f}B seeded bf16 parameters on {dev} "
           f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    max_len = SEQ + DECODE_TOKENS + 2
+    warm_cache = init_cache(cfg, SLOTS, max_len, device=dev)
+    prefill(cfg, params, {"tokens": torch.zeros((1, SEQ), dtype=torch.int32,
+                                                device=dev)}, max_len)
+    decode_step(cfg, params, warm_cache,
+                torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev),
+                torch.full((SLOTS,), SEQ, dtype=torch.int32, device=dev))
+    del warm_cache
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"warm-up (one prefill, one dense decode step): "
+          f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def serve(torch, dev, cfg, params, **spec):
+    """Serve SCENARIO PD-separated on the paged arena (``spec``: the
+    speculation fields of RuntimeConfig); the launch counts are set to 0
+    just before the run and read just after.  Returns (runtime, wall
+    seconds, launch counts)."""
+    from repro_torch.core.profiles import Profile
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving import GBPS, BandwidthTrace, SchedulerConfig
+    from repro_torch.serving.engine import RuntimeConfig, ServingRuntime
+
     profile = Profile(
         StrategyConfig(quantizer="uniform", key_bits=8, value_bits=8,
                        granularity="per_token", symmetric=True,
@@ -307,27 +506,14 @@ def runtime_phase(torch, dev):
         config=RuntimeConfig(seq=SEQ, decode_tokens=DECODE_TOKENS,
                              mode="pd", paged=True, page_size=PAGE_SIZE,
                              pd_inject_restored=True,
-                             store_capacity=1 << 30),
+                             store_capacity=1 << 30, **spec),
         trace=BandwidthTrace.constant(100 * GBPS),
         scheduler=SchedulerConfig(max_slots=SLOTS, max_prefills_per_step=2,
                                   max_queue=32),
         device=dev)
     rt.model_cfg, rt.params = cfg, params
-    # set-up, timed apart: the first prefill and decode step pay cuBLAS's
-    # lazy initialisation, which a long-running server pays once
-    t0 = time.perf_counter()
-    warm_cache = init_cache(cfg, SLOTS, rt.cfg.arena_max_len, device=dev)
-    prefill(cfg, params, {"tokens": torch.zeros((1, SEQ), dtype=torch.int32,
-                                                device=dev)},
-            rt.cfg.arena_max_len)
-    decode_step(cfg, params, warm_cache,
-                torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev),
-                torch.full((SLOTS,), SEQ, dtype=torch.int32, device=dev))
-    del warm_cache
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    print(f"warm-up (one prefill, one dense decode step): "
-          f"{time.perf_counter() - t0:.2f} s")
     reset_launches()
     t0 = time.perf_counter()
     for w, slo_class, seed, out_tokens, steps_after in list(SCENARIO):
@@ -339,7 +525,7 @@ def runtime_phase(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return rt, cfg, params, wall, launches()
+    return rt, wall, launches()
 
 
 def _leaves(tree):
@@ -369,6 +555,42 @@ def check_runtime(rt, cfg) -> None:
               "every page returned")
 
 
+def release_arenas(torch, rt) -> None:
+    """Free a finished runtime's page pools (~3 GB at full width) and a
+    draft model's arena before the next phase allocates its own."""
+    for dw in rt.decode_workers:
+        dw._arena = dw._qcodes = dw._qscales = dw._draft = None
+    torch.cuda.empty_cache()
+
+
+def print_requests(rt, wall) -> None:
+    print(f"runtime: {len(rt.completed)} requests in {wall:.2f} s wall, "
+          f"{rt.steps} iterations")
+    for r in sorted(rt.completed, key=lambda r: r.rid):
+        bd = ", ".join(f"{k}={v * 1e3:.2f}ms" for k, v in r.breakdown.items())
+        print(f"  rid {r.rid} {r.workload:9s} hit={int(r.pool_hit)} "
+              f"ttft={r.ttft * 1e3:.2f}ms jct={r.jct * 1e3:.2f}ms "
+              f"wire_bytes={r.wire_bytes} [{bd}]")
+
+
+def print_speculation(plain, spec) -> None:
+    """Per request: the speculative run's TTFT, JCT, verify steps,
+    committed tokens and accept rate beside the plain run's TTFT/JCT."""
+    base = {r.rid: r for r in plain.completed}
+    for r in sorted(spec.completed, key=lambda r: r.rid):
+        p = base[r.rid]
+        rate = (r.drafts_accepted / r.drafts_offered
+                if r.drafts_offered else float("nan"))
+        print(f"  rid {r.rid} {r.workload:9s} hit={int(r.pool_hit)} "
+              f"ttft={r.ttft * 1e3:.2f}ms (plain {p.ttft * 1e3:.2f}ms) "
+              f"jct={r.jct * 1e3:.2f}ms (plain {p.jct * 1e3:.2f}ms) "
+              f"decode={r.breakdown['decode'] * 1e3:.2f}ms (plain "
+              f"{p.breakdown['decode'] * 1e3:.2f}ms) verify_steps="
+              f"{r.verify_steps} committed={r.spec_committed} "
+              f"drafts={r.drafts_accepted}/{r.drafts_offered} "
+              f"accept_rate={rate:.3f} tokens={list(map(int, r.tokens))}")
+
+
 def reference_check(torch, rt, cfg, params, dev):
     """One full-width decode step of a served prompt on the card, from the
     wire-restored KV resident in the paged arena as bf16 pages and as
@@ -382,7 +604,7 @@ def reference_check(torch, rt, cfg, params, dev):
     from repro_torch.core.kvcache import PageTable
     from repro_torch.core.pipeline import CompressionPipeline
     from repro_torch.core.quality import (
-        _prompts_for, extract_kv, init_paged_pools, inject_kv,
+        _paged_caches, _prompts_for, extract_kv, init_paged_pools, inject_kv,
         inject_kv_paged, inject_quant_pages)
     from repro_torch.kernels import ref
     from repro_torch.models.transformer import decode_step, init_cache, prefill
@@ -419,11 +641,7 @@ def reference_check(torch, rt, cfg, params, dev):
         else:
             pool = inject_kv_paged(cfg, pool, row, restored, page_size)
         ql = torch.tensor([quant_len], dtype=torch.int32, device=dev)
-        paged = {part: {name: layers.PagedKV(
-            c["k"], c["v"], qc[part][name]["k"], qs[part][name]["k"],
-            qc[part][name]["v"], qs[part][name]["v"], bt, ql)
-            for name, c in pool[part].items()}
-            for part in ("prefix", "blocks")}
+        paged = _paged_caches(pool, qc, qs, bt, ql)
         return decode_step(cfg, params, paged, tok, pos)[0][0, -1].float()
 
     err, scale, gap, same = 0.0, 0.0, float("inf"), True
@@ -446,6 +664,79 @@ def reference_check(torch, rt, cfg, params, dev):
               f"{float(plain.abs().max()):.4g}, argmax "
               f"{int(kernel.argmax())} vs {int(plain.argmax())}); dense-cache "
               f"path {d:.4g} away, argmax {int(dense_logits.argmax())}")
+    return err, scale, gap, same
+
+
+def verify_reference_check(torch, strategy, cfg, params, dev):
+    """One full-width W = 5 verify step of a served prompt on the card, from
+    the wire-restored KV resident in the paged arena as bf16 pages and as
+    int8 quant pages: through the verify kernel, and through its plain
+    version (the same sums in the same order).  Returns (max |logit
+    difference|, logit scale, plain top-2 gap at a differing argmax, every
+    row's argmax agrees)."""
+    import repro_torch.models.layers as layers
+    from repro_torch.core.kvcache import PageTable
+    from repro_torch.core.pipeline import CompressionPipeline
+    from repro_torch.core.quality import (
+        _paged_caches, _prompts_for, extract_kv, init_paged_pools,
+        inject_kv_paged, inject_quant_pages)
+    from repro_torch.kernels import ref
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.serving.workers import quant_entry_arrays
+
+    w = SPEC_K + 1
+    seq, max_len = SEQ, SEQ + DECODE_TOKENS + 2 + SPEC_K
+    tokens, _ = _prompts_for(SCENARIO[1][0], 1, seq, SCENARIO[1][2])
+    logits, caches = prefill(cfg, params, {"tokens": torch.as_tensor(
+        tokens, dtype=torch.int32, device=dev)}, max_len)
+    first = int(logits[0, -1].argmax())
+    # the last committed token, then four draft tokens from the prompt
+    block = torch.tensor([[first] + [int(t) for t in tokens[0, -w + 1:]]],
+                         dtype=torch.int32, device=dev)
+    pos = torch.tensor([seq], dtype=torch.int32, device=dev)
+    comp = CompressionPipeline(strategy).compress(
+        extract_kv(cfg, caches, 0, seq))
+    restored = CompressionPipeline(strategy, device=dev).decompress(comp)
+    pps = -(-max_len // PAGE_SIZE)
+    table = PageTable(pps + 1, PAGE_SIZE)
+    table.ensure(0, seq + w)
+    row = table.block_row(0, pps)
+    bt = torch.as_tensor(row[None], device=dev)
+    (kc, ks), (vc, vs) = quant_entry_arrays(comp)
+
+    def verify_logits(quant_len):
+        pool, qc, qs = init_paged_pools(cfg, pps + 1, PAGE_SIZE, 1,
+                                        device=dev)
+        if quant_len:
+            qc, qs = inject_quant_pages(cfg, qc, qs, row, kc, ks, vc, vs,
+                                        seq, PAGE_SIZE)
+        else:
+            pool = inject_kv_paged(cfg, pool, row, restored, PAGE_SIZE)
+        ql = torch.tensor([quant_len], dtype=torch.int32, device=dev)
+        paged = _paged_caches(pool, qc, qs, bt, ql)
+        return decode_step(cfg, params, paged, block, pos)[0][0].float()
+
+    err, scale, gap, same = 0.0, 0.0, 0.0, True
+    for quant_len, where in ((0, "bf16 pages"), (seq, "int8 pages")):
+        kernel = verify_logits(quant_len)
+        kernel_op = layers.paged_verify_attention_arena_op
+        layers.paged_verify_attention_arena_op = \
+            ref.paged_verify_attention_arena_ref
+        try:
+            plain = verify_logits(quant_len)
+        finally:
+            layers.paged_verify_attention_arena_op = kernel_op
+        top = torch.topk(plain, 2, dim=-1).values          # (W, 2)
+        e = float((kernel - plain).abs().max())
+        err, scale = max(err, e), max(scale, float(plain.abs().max()))
+        agree = kernel.argmax(-1) == plain.argmax(-1)
+        if not bool(agree.all()):
+            gap = max(gap, float((top[:, 0] - top[:, 1])[~agree].max()))
+        same = same and bool(agree.all())
+        print(f"reference check, one full-width W={w} verify step from "
+              f"{where}: kernel vs plain max|logit diff| {e:.4g} (logit "
+              f"scale {float(plain.abs().max()):.4g}), argmax per row "
+              f"{kernel.argmax(-1).tolist()} vs {plain.argmax(-1).tolist()}")
     return err, scale, gap, same
 
 
@@ -475,21 +766,21 @@ def main() -> int:
 
     # ---- 2. kernels ----
     results = kernel_phase(torch, dev)
+    results["paged_verify_attention"] = verify_kernel_phase(torch, dev)
     torch.cuda.synchronize()
     for k, r in results.items():
         print(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
               f"{r['library_ms']})")
+    for wk, r in results["paged_verify_attention"]["widths"].items():
+        print(f"paged_verify_attention_arena {wk}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, SDPA {r['library_ms']:.4f} ms)")
 
     # ---- 3. runtime ----
-    rt, cfg, params, wall, counts = runtime_phase(torch, dev)
-    print(f"runtime: {len(rt.completed)} requests in {wall:.2f} s wall, "
-          f"{rt.steps} iterations")
-    for r in sorted(rt.completed, key=lambda r: r.rid):
-        bd = ", ".join(f"{k}={v * 1e3:.2f}ms" for k, v in r.breakdown.items())
-        print(f"  rid {r.rid} {r.workload:9s} hit={int(r.pool_hit)} "
-              f"ttft={r.ttft * 1e3:.2f}ms jct={r.jct * 1e3:.2f}ms "
-              f"wire_bytes={r.wire_bytes} [{bd}]")
+    cfg, params = model_setup(torch, dev)
+    rt, wall, counts = serve(torch, dev, cfg, params)
+    print_requests(rt, wall)
     check_runtime(rt, cfg)
     launches = {"quant_pack": counts["quant_pack_op"],
                 "dequant_unpack": counts["dequant_unpack_op"],
@@ -502,6 +793,36 @@ def main() -> int:
     tol = 2e-2 + 1.6e-2 * scale
     check(err <= tol and (same or gap <= tol),
           "full-width decode through the kernel agrees with the plain path")
+    strategy = rt.static_profile.strategy
+    release_arenas(torch, rt)
+
+    # ---- 4. speculative runtime ----
+    for kind in ("ngram", "model"):
+        spec, spec_wall, spec_counts = serve(torch, dev, cfg, params,
+                                             spec_k=SPEC_K, spec_kind=kind)
+        print(f"speculative runtime ({kind} drafts, spec_k={SPEC_K}): "
+              f"{len(spec.completed)} requests in {spec_wall:.2f} s wall "
+              f"(plain {wall:.2f} s), {spec.steps} iterations (plain "
+              f"{rt.steps})")
+        print_speculation(rt, spec)
+        check_runtime(spec, cfg)
+        if kind == "ngram":
+            release_arenas(torch, spec)
+    done = spec.completed
+    check(sum(r.verify_steps for r in done) > 0, "verify steps taken")
+    check(sum(r.drafts_offered for r in done) > 0, "drafts offered")
+    launches["paged_verify_attention"] = \
+        spec_counts["paged_verify_attention_arena_op"]
+    print(f"launches on the speculative path: {spec_counts}")
+    check(launches["paged_verify_attention"] > 0,
+          "paged_verify_attention launched on the speculative path")
+    release_arenas(torch, spec)
+    err, scale, gap, same = verify_reference_check(torch, strategy, cfg,
+                                                   params, dev)
+    tol = 2e-2 + 1.6e-2 * scale
+    check(err <= tol and (same or gap <= tol),
+          "full-width verify step through the kernel agrees with the plain "
+          "path")
 
     meta = {
         "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
@@ -510,6 +831,9 @@ def main() -> int:
                            "src/repro/kernels/quant_pack.py:112"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:150"),
+        "paged_verify_attention": (
+            "src/repro_torch/kernels/csrc/paged_verify_attention.cu",
+            "src/repro/kernels/paged_verify_attention.py:149"),
     }
     kernels = []
     for k, (src, replaces) in meta.items():

@@ -163,6 +163,35 @@ def _device_of(tree) -> torch.device:
     raise ValueError("empty cache tree")
 
 
+def _paged_caches(pool, qcodes, qscales, bt, quant_len):
+    """The decode step's view of the paged arena: one
+    :class:`~repro_torch.models.layers.PagedKV` per attention layer,
+    read in place by the Hopper kernels."""
+    return {part: {name: PagedKV(
+        c["k"], c["v"], qcodes[part][name]["k"], qscales[part][name]["k"],
+        qcodes[part][name]["v"], qscales[part][name]["v"], bt, quant_len)
+        for name, c in pool[part].items()}
+        for part in ("prefix", "blocks")}
+
+
+def _scatter_new_rows(pool, new, bt, pos, page_size: int, s: int) -> None:
+    """Write the ``s`` new K/V rows of each slot (positions pos ..
+    pos+s-1) to the pages its block table names, in place.  Positions
+    beyond a slot's owned pages map to table entry 0, the scratch page."""
+    p = pos.long()[:, None] + torch.arange(s, device=pos.device)[None, :]
+    page_idx = bt.long().gather(1, p // page_size)              # (B, S)
+    offset = p % page_size
+    for part in ("prefix", "blocks"):
+        for name, upd in new[part].items():
+            for key in ("k", "v"):
+                buf = pool[part][name][key]
+                rows = upd[key + "_new"].to(buf.dtype)    # (·, B, S, H, D)
+                if part == "prefix":
+                    buf[page_idx, offset] = rows
+                else:
+                    buf[:, page_idx, offset] = rows
+
+
 def _paged_steps(cfg_name: str, page_size: int):
     """The paged arena's step functions for one model config:
     ``(arena, copy)``.
@@ -189,26 +218,10 @@ def _paged_steps(cfg_name: str, page_size: int):
               mask):
         view_len = bt.shape[1] * ps
         pos = torch.where(mask, pos, view_len - 1).to(torch.int32)
-        caches = {part: {name: PagedKV(
-            c["k"], c["v"], qcodes[part][name]["k"],
-            qscales[part][name]["k"], qcodes[part][name]["v"],
-            qscales[part][name]["v"], bt, quant_len)
-            for name, c in pool[part].items()}
-            for part in ("prefix", "blocks")}
+        caches = _paged_caches(pool, qcodes, qscales, bt, quant_len)
         logits, new = decode_step(cfg, params, caches, tokens, pos)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        p = pos.long()
-        page_idx = bt.long().gather(1, (p // ps)[:, None])[:, 0]
-        offset = p % ps
-        for part in ("prefix", "blocks"):
-            for name, upd in new[part].items():
-                for key in ("k", "v"):
-                    buf = pool[part][name][key]
-                    row = upd[key + "_new"][..., 0, :, :].to(buf.dtype)
-                    if part == "prefix":
-                        buf[page_idx, offset] = row
-                    else:
-                        buf[:, page_idx, offset] = row
+        _scatter_new_rows(pool, new, bt, pos, ps, 1)
         return torch.where(mask, nxt, torch.zeros_like(nxt)), pool
 
     def copy(pool, src, bt_row, src_idx):
@@ -229,6 +242,40 @@ def _paged_steps(cfg_name: str, page_size: int):
         return pool
 
     return arena, copy
+
+
+def _paged_verify_steps(cfg_name: str, page_size: int, width: int):
+    """The paged multi-token verify step for one config and width
+    (DESIGN.md §15): ``verify(params, pool, qcodes, qscales, bt,
+    quant_len, tokens, pos, mask)`` widens ``_paged_steps``'s arena decode
+    to a ``(B, width)`` query block.  Each live slot feeds ``width`` tokens
+    at positions ``pos .. pos+width-1``; attention reads the committed
+    prefix in place through the Hopper ``paged_verify_attention_arena``
+    kernel and merges the new tokens in closed form, and all ``width``
+    greedy argmax outputs come back (B, width) for host-side accept-prefix
+    matching.  All ``width`` K/V rows are scattered to each slot's pages;
+    positions beyond a slot's ensured span map to block-table entry 0,
+    the scratch page no live query reads, so slots verifying fewer drafts
+    need no masking.  Parked rows pin to ``view_len - width`` (scratch or
+    never-attended tail rows again).  Rejected suffixes are rolled back
+    by the caller through ``PageTable.release_tail``; reads are capped at
+    each slot's committed ``pos``, so the pages need no scrubbing."""
+    from repro_torch.models.transformer import decode_step
+
+    cfg = get_config(cfg_name)
+    ps = page_size
+
+    def verify(params, pool, qcodes, qscales, bt, quant_len, tokens, pos,
+               mask):
+        view_len = bt.shape[1] * ps
+        pos = torch.where(mask, pos, view_len - width).to(torch.int32)
+        caches = _paged_caches(pool, qcodes, qscales, bt, quant_len)
+        logits, new = decode_step(cfg, params, caches, tokens, pos)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)   # (B, width)
+        _scatter_new_rows(pool, new, bt, pos, ps, width)
+        return torch.where(mask[:, None], nxt, torch.zeros_like(nxt)), pool
+
+    return verify
 
 
 def copy_cache_slot_paged(cfg, pool, src, bt_row, page_size: int,
@@ -319,6 +366,29 @@ def _jitted_steps(cfg_name: str, seq: int, batch: int, max_len: int):
         return torch.where(mask, nxt, torch.zeros_like(nxt)), c
 
     return pre, dec, arena
+
+
+def _verify_steps(cfg_name: str, max_len: int, width: int):
+    """The dense multi-token verify step (DESIGN.md §15): ``verify(params,
+    caches, tokens, pos, mask)`` widens ``_jitted_steps``'s arena decode to
+    a ``(B, width)`` query block.  Each live slot feeds its last committed
+    token plus ``width-1`` drafts at positions ``pos .. pos+width-1`` and
+    gets all ``width`` greedy argmax outputs back.  Parked rows pin to
+    ``max_len - width`` so all ``width`` K/V row writes stay in bounds;
+    the writes are inert because reads are capped at each slot's
+    committed position, so rejected draft rows are overwritten by later
+    steps and never attended to."""
+    from repro_torch.models import decode_step
+
+    cfg = get_config(cfg_name)
+
+    def verify(p, c, t, pos, mask):
+        pos = torch.where(mask, pos, max_len - width).to(torch.int32)
+        logits, c = decode_step(cfg, p, c, t, pos)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)   # (B, width)
+        return torch.where(mask[:, None], nxt, torch.zeros_like(nxt)), c
+
+    return verify
 
 
 def _prompts_for(workload: str, n: int, seq: int, seed: int

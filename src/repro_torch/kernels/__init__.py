@@ -7,6 +7,11 @@
   paged_attention_arena  the same kernel over the serving arena's per-layer
                          fp + quant pools, returning (out, m, l) for the
                          decode step's closed-form new-token merge
+  paged_verify_attention the speculative verify step's W-token attention
+                         (staircase mask), the Pallas kernel's interface
+  paged_verify_attention_arena
+                         the verify step's read of the arena's committed
+                         prefix for W * Gq rows, returning (out, m, l)
 
 Each kernel: CUDA C++ in ``csrc/`` built by ``build.py``, a wrapper in
 ``ops.py`` with a launch counter, and a plain PyTorch version in ``ref.py``.
@@ -16,10 +21,13 @@ from repro_torch.kernels.ops import (
     launches,
     paged_attention_arena_op,
     paged_attention_op,
+    paged_verify_attention_arena_op,
+    paged_verify_attention_op,
     quant_pack_op,
     reset_launches,
 )
 
 __all__ = ["dequant_unpack_op", "paged_attention_arena_op",
-           "paged_attention_op", "quant_pack_op", "launches",
+           "paged_attention_op", "paged_verify_attention_arena_op",
+           "paged_verify_attention_op", "quant_pack_op", "launches",
            "reset_launches"]

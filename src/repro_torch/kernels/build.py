@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface under ``build/kernels/`` at the
 repository root, on first use, and loaded with ``ctypes``.  A library's
-file name carries a digest of its source and flags, so an edited source
-is rebuilt and a stale library is never loaded.  ``build_all`` starts one
+file name carries a digest of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -40,6 +41,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "paged_attention_arena": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                   _P)},
+    "paged_verify_attention": {
+        "paged_verify_attention": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                   _P),
+        "paged_verify_attention_arena": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _I, _F, _P)},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -59,8 +67,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

@@ -34,38 +34,16 @@
 // beyond the slot's length are never read.  No wgmma or TMA yet: with
 // B * Hkv blocks this leaves most SMs idle at small batch; splitting the
 // positions of a slot across blocks is the next step.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "paged_pages.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGq = 16;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Block-wide reductions; every thread gets the result.
 __device__ float block_max(float v, float* red) {
@@ -91,63 +69,6 @@ __device__ float block_sum(float v, float* red) {
   __syncthreads();
   return r;
 }
-
-// Where K/V element (t, d) of slot b, head h lives, and how it decodes.
-struct PallasPages {  // (P, Hkv, PS, D') codes + (P, Hkv, PS, D/group) f32
-  const uint8_t* kc;
-  const float* ks;
-  const uint8_t* vc;
-  const float* vs;
-  int hkv, ps, d, bits, group;
-
-  __device__ __forceinline__ long long row(int page, int h, int r) const {
-    return ((long long)page * hkv + h) * ps + r;
-  }
-  __device__ __forceinline__ float load(const uint8_t* c, const float* s,
-                                        long long rw, int dd) const {
-    int q;
-    if (bits == 4) {
-      const uint8_t byte = c[rw * (d / 2) + dd / 2];
-      q = (int)((dd & 1) ? (byte >> 4) : (byte & 0x0F)) - 8;
-    } else {
-      q = reinterpret_cast<const int8_t*>(c)[rw * d + dd];
-    }
-    return (float)q * s[rw * (d / group) + dd / group];
-  }
-  __device__ __forceinline__ float k(int page, int h, int r, int dd,
-                                     bool) const {
-    return load(kc, ks, row(page, h, r), dd);
-  }
-  __device__ __forceinline__ float v(int page, int h, int r, int dd,
-                                     bool) const {
-    return load(vc, vs, row(page, h, r), dd);
-  }
-};
-
-struct ArenaPages {  // all (P, PS, Hkv, D): bf16 fp, int8 codes, f32 scales
-  const __nv_bfloat16* kf;
-  const __nv_bfloat16* vf;
-  const int8_t* kc;
-  const float* ks;
-  const int8_t* vc;
-  const float* vs;
-  int hkv, ps, d;
-
-  __device__ __forceinline__ long long at(int page, int h, int r,
-                                          int dd) const {
-    return (((long long)page * ps + r) * hkv + h) * d + dd;
-  }
-  __device__ __forceinline__ float k(int page, int h, int r, int dd,
-                                     bool quant) const {
-    const long long i = at(page, h, r, dd);
-    return quant ? bf16_round((float)kc[i] * ks[i]) : __bfloat162float(kf[i]);
-  }
-  __device__ __forceinline__ float v(int page, int h, int r, int dd,
-                                     bool quant) const {
-    const long long i = at(page, h, r, dd);
-    return quant ? bf16_round((float)vc[i] * vs[i]) : __bfloat162float(vf[i]);
-  }
-};
 
 // kArena selects the arena's rounding points and unnormalized output.
 template <bool kArena, typename Pages, typename QT>
@@ -244,14 +165,6 @@ __global__ void __launch_bounds__(kThreads)
 size_t smem_bytes(int gq, int d, int pps, int ps) {
   return sizeof(float) * ((size_t)gq * d + (size_t)gq * pps * ps + kWarps) +
          sizeof(int) * (size_t)pps;
-}
-
-// Dynamic shared memory above 48 KB has to be asked for per kernel.
-template <typename K>
-int allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

@@ -203,8 +203,125 @@ def paged_attention_arena_op(
     return out, m, l
 
 
+# The verify kernel: one block of 512 threads per (slot, KV head), at most
+# 32 query rows, at most 16 rows per (channel, thread group) in its pass 3.
+_VERIFY_THREADS, _VERIFY_MAX_ROWS, _VERIFY_ROWS_PER_THREAD = 512, 32, 16
+
+
+def _verify_smem_bytes(rows: int, d: int, pps: int, ps: int) -> int:
+    return 4 * (rows * d + rows * pps * ps + rows) + 4 * pps
+
+
+def _check_verify_shape(name: str, rows: int, d: int, pps: int,
+                        ps: int) -> None:
+    groups = _VERIFY_THREADS // max(d, 1)
+    if (rows < 1 or rows > _VERIFY_MAX_ROWS or d < 4 or d % 4
+            or _VERIFY_THREADS % d
+            or -(-rows // groups) > _VERIFY_ROWS_PER_THREAD
+            or _verify_smem_bytes(rows, d, pps, ps) > _MAX_SMEM):
+        raise ValueError(f"{name}: W*Gq={rows} D={d} PPS*PS={pps * ps} "
+                         f"(smem {_verify_smem_bytes(rows, d, pps, ps)} "
+                         f"bytes, at most {_MAX_SMEM})")
+
+
+def paged_verify_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
+                              k_scale: torch.Tensor, v_codes: torch.Tensor,
+                              v_scale: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              kv_lens: torch.Tensor, bits: int = 8,
+                              group: int = 64,
+                              interpret: Optional[bool] = None
+                              ) -> torch.Tensor:
+    """Paged multi-token verify attention, the Pallas kernel's interface:
+    q (B, Hkv, W, Gq, D) W consecutive verify tokens per slot, query
+    ``j`` masked at ``kv_lens[b] + j`` (the staircase); code pools as
+    :func:`paged_attention_op`'s; kv_lens (B,) int32, each >= 1.
+    Returns the normalized (B, Hkv, W, Gq, D) output in q's dtype."""
+    if not _use_kernel(q, interpret):
+        return ref.paged_verify_attention_ref(
+            q, k_codes, k_scale, v_codes, v_scale, block_tables, kv_lens,
+            bits, group)
+    b, hkv, w, gq, d = q.shape
+    p, _, ps, _ = k_codes.shape
+    pps = block_tables.shape[1]
+    cw = d if bits == 8 else d // 2
+    cdt = (torch.int8,) if bits == 8 else (torch.uint8,)
+    dev = q.device
+    _check(q, "q", (torch.float32, torch.bfloat16), dev)
+    for name, t in (("k_codes", k_codes), ("v_codes", v_codes)):
+        _check(t, name, cdt, dev, (p, hkv, ps, cw))
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(t, name, (torch.float32,), dev, (p, hkv, ps, d // group))
+    _check(block_tables, "block_tables", (torch.int32,), dev, (b, pps))
+    _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
+    if bits not in (4, 8) or d % group:
+        raise ValueError(f"paged_verify_attention: bits={bits} "
+                         f"group={group} D={d}")
+    _check_verify_shape("paged_verify_attention", w * gq, d, pps, ps)
+    out = torch.empty_like(q)
+    _launch("paged_verify_attention", "paged_verify_attention", dev,
+            q.data_ptr(), int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
+            k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            b, hkv, w, gq, d, pps, ps, bits, group, 1.0 / math.sqrt(d))
+    paged_verify_attention_op.launches += 1
+    return out
+
+
+def paged_verify_attention_arena_op(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    k_codes: torch.Tensor, k_scale: torch.Tensor, v_codes: torch.Tensor,
+    v_scale: torch.Tensor, block_tables: torch.Tensor,
+    kv_lens: torch.Tensor, quant_lens: torch.Tensor,
+    interpret: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The speculative verify step's read of one layer of the serving
+    arena: q (B, Hkv, Gq, W, D) bf16 (W consecutive tokens per slot);
+    pools as :func:`paged_attention_arena_op`'s; kv_lens (B,) int32 (every
+    row sees positions < kv_lens: the committed prefix); quant_lens (B,)
+    int32.  Returns (unnormalized bf16 out (B, Hkv, Gq, W, D), f32 m, f32
+    l (B, Hkv, Gq, W)) for the caller's closed-form merge of the W new
+    tokens."""
+    if not _use_kernel(q, interpret):
+        return ref.paged_verify_attention_arena_ref(
+            q, k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
+            block_tables, kv_lens, quant_lens)
+    b, hkv, gq, w, d = q.shape
+    p, ps = k_pool.shape[:2]
+    pps = block_tables.shape[1]
+    dev = q.device
+    pool_shape = (p, ps, hkv, d)
+    _check(q, "q", (torch.bfloat16,), dev)
+    for name, t, dt in (("k_pool", k_pool, torch.bfloat16),
+                        ("v_pool", v_pool, torch.bfloat16),
+                        ("k_codes", k_codes, torch.int8),
+                        ("v_codes", v_codes, torch.int8),
+                        ("k_scale", k_scale, torch.float32),
+                        ("v_scale", v_scale, torch.float32)):
+        _check(t, name, (dt,), dev, pool_shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_verify_attention_arena: {name} is not "
+                             f"16-byte aligned (vector loads)")
+    _check(block_tables, "block_tables", (torch.int32,), dev, (b, pps))
+    _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
+    _check(quant_lens, "quant_lens", (torch.int32,), dev, (b,))
+    _check_verify_shape("paged_verify_attention_arena", gq * w, d, pps, ps)
+    out = torch.empty_like(q)
+    m = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
+    l = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
+    _launch("paged_verify_attention", "paged_verify_attention_arena", dev,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
+            v_scale.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
+            quant_lens.data_ptr(), out.data_ptr(), m.data_ptr(),
+            l.data_ptr(), b, hkv, gq, w, d, pps, ps, 1.0 / math.sqrt(d))
+    paged_verify_attention_arena_op.launches += 1
+    return out, m, l
+
+
 KERNEL_OPS = (quant_pack_op, dequant_unpack_op, paged_attention_op,
-              paged_attention_arena_op)
+              paged_attention_arena_op, paged_verify_attention_op,
+              paged_verify_attention_arena_op)
 for _op in KERNEL_OPS:
     _op.launches = 0
 

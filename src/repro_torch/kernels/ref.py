@@ -159,6 +159,26 @@ def _block_sum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _arena_kv(k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
+              block_tables, quant_lens):
+    """Each slot's (B, S, Hkv, D) bf16 K and V views of the arena:
+    quant-resident positions (below quant_lens) dequantize in f32 and
+    round to bf16, the rest read the fp pool."""
+    bt = block_tables.long()
+
+    def view(pool):  # (P, PS, H, X) -> (B, S, H, X)
+        g = pool[bt]
+        return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+    s = bt.shape[1] * k_pool.shape[1]
+    use_q = (torch.arange(s, device=bt.device)[None, :]
+             < quant_lens.to(bt.device).long()[:, None])[:, :, None, None]
+    kq = (view(k_codes).float() * view(k_scale)).to(torch.bfloat16)
+    vq = (view(v_codes).float() * view(v_scale)).to(torch.bfloat16)
+    return (torch.where(use_q, kq, view(k_pool)),
+            torch.where(use_q, vq, view(v_pool)))
+
+
 def paged_attention_arena_ref(
     q: torch.Tensor,          # (B, Hkv, Gq, D) bf16
     k_pool: torch.Tensor,     # (P, PS, Hkv, D) bf16 fp pool
@@ -182,19 +202,9 @@ def paged_attention_arena_ref(
     as the JAX package's ``multihead_attention(return_stats=True)`` over
     ``_blend_quant``'s view."""
     b, hkv, gq, d = q.shape
-    bt = block_tables.long()
-
-    def view(pool):  # (P, PS, H, X) -> (B, S, H, X)
-        g = pool[bt]
-        return g.reshape(g.shape[0], -1, *g.shape[3:])
-
-    s = bt.shape[1] * k_pool.shape[1]
-    use_q = (torch.arange(s, device=q.device)[None, :]
-             < quant_lens.to(q.device).long()[:, None])[:, :, None, None]
-    kq = (view(k_codes).float() * view(k_scale)).to(torch.bfloat16)
-    vq = (view(v_codes).float() * view(v_scale)).to(torch.bfloat16)
-    k = torch.where(use_q, kq, view(k_pool))
-    v = torch.where(use_q, vq, view(v_pool))
+    k, v = _arena_kv(k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
+                     block_tables, quant_lens)
+    s = k.shape[1]
     scores = _warp_dot(q.float()[:, :, :, None, :],
                        k.float().permute(0, 2, 1, 3)[:, :, None])
     scores = scores.to(torch.bfloat16).float() * (1.0 / math.sqrt(d))
@@ -212,3 +222,97 @@ def paged_attention_arena_ref(
     for t in range(s):
         out = out + pb[..., t, None] * vt[:, :, None, t]
     return out.to(torch.bfloat16), m, l
+
+
+# ---------------------------------------------------------------------------
+# Paged multi-token verify attention, Pallas interface
+# ---------------------------------------------------------------------------
+def paged_verify_attention_ref(
+    q: torch.Tensor,             # (B, Hkv, W, Gq, D)
+    k_codes: torch.Tensor,       # (P, Hkv, PS, D) int8 or (P, Hkv, PS, D/2) u8
+    k_scale: torch.Tensor,       # (P, Hkv, PS, D/group) f32
+    v_codes: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, PPS) int32 page ids; 0 = unmapped
+    kv_lens: torch.Tensor,       # (B,) int32; query 0's visible length
+    bits: int,
+    group: int,
+) -> torch.Tensor:
+    """Plain version of ops.paged_verify_attention_op: the speculative
+    verify step's attention of W consecutive queries per slot.  Query
+    ``j`` of slot ``b`` attends cache positions ``< kv_lens[b] + j`` (the
+    staircase: each new token's own scattered row included, its
+    successors excluded); f32 math, normalized, in q's dtype."""
+    d = q.shape[-1]
+    w = q.shape[2]
+    k = dequant_unpack_ref(_gather_pages(k_codes, block_tables),
+                           _gather_pages(k_scale, block_tables), bits, group)
+    v = dequant_unpack_ref(_gather_pages(v_codes, block_tables),
+                           _gather_pages(v_scale, block_tables), bits, group)
+    s = k.shape[2]
+    scores = torch.einsum("bhwgd,bhsd->bhwgs", q.float(), k) / math.sqrt(d)
+    limit = (kv_lens.to(q.device).long()[:, None]
+             + torch.arange(w, device=q.device)[None, :])      # (B, W)
+    mask = (torch.arange(s, device=q.device)[None, None, :]
+            < limit[..., None])                                # (B, W, S)
+    scores = scores.masked_fill(~mask[:, None, :, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhwgs,bhsd->bhwgd", probs, v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged multi-token verify attention over the serving arena's layout
+# ---------------------------------------------------------------------------
+def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b, -1) as one thread takes it: in order over the last axis,
+    from zero (the products of bf16-valued operands are exact in f32)."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1],
+                      device=a.device)
+    for i in range(a.shape[-1]):
+        acc = acc + a[..., i] * b[..., i]
+    return acc
+
+
+def paged_verify_attention_arena_ref(
+    q: torch.Tensor,          # (B, Hkv, Gq, W, D) bf16
+    k_pool: torch.Tensor,     # (P, PS, Hkv, D) bf16 fp pool
+    v_pool: torch.Tensor,
+    k_codes: torch.Tensor,    # (P, PS, Hkv, D) int8 quant pool
+    k_scale: torch.Tensor,    # (P, PS, Hkv, D) f32 per-channel scales
+    v_codes: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, PPS) int32
+    kv_lens: torch.Tensor,       # (B,) int32: every row sees positions
+                                 # < kv_lens (the committed prefix)
+    quant_lens: torch.Tensor,    # (B,) int32: positions < quant_lens read
+                                 # the quant pool, the rest the fp pool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ops.paged_verify_attention_arena_op: the
+    speculative verify step's read of the committed prefix in the paged
+    arena, for W * Gq query rows per KV head.  The rounding points are
+    paged_attention_arena_ref's; the sums run in the verify kernel's
+    order: each score in order over D, each row's denominator as one
+    warp takes it, each output in order over the positions.  Returns the
+    UNNORMALIZED bf16 ``out`` (B, Hkv, Gq, W, D) with f32 ``m`` and ``l``
+    (B, Hkv, Gq, W), which the caller merges with the W new tokens'
+    intra-block attention in closed form."""
+    b, hkv, gq, w, d = q.shape
+    k, v = _arena_kv(k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
+                     block_tables, quant_lens)
+    s = k.shape[1]
+    qr = q.float().reshape(b, hkv, gq * w, 1, d)
+    scores = _seq_dot(qr, k.float().permute(0, 2, 1, 3)[:, :, None])
+    scores = scores.to(torch.bfloat16).float() * (1.0 / math.sqrt(d))
+    seen = (torch.arange(s, device=q.device)[None, :]
+            < kv_lens.to(q.device).long()[:, None])[:, None, None, :]
+    scores = torch.where(seen, scores, torch.finfo(torch.float32).min)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    l = _butterfly(_strided_sums(p, 32))
+    pb = p.to(torch.bfloat16).float()
+    vt = v.float().permute(0, 2, 1, 3)                 # (B, Hkv, S, D)
+    out = torch.zeros((b, hkv, gq * w, d), device=q.device)
+    for t in range(s):
+        out = out + pb[..., t, None] * vt[:, :, None, t]
+    return (out.to(torch.bfloat16).reshape(b, hkv, gq, w, d),
+            m.reshape(b, hkv, gq, w), l.reshape(b, hkv, gq, w))

@@ -10,7 +10,9 @@ package's: greedy argmax flips on 1-ulp differences.
 
 The decode path reads either a dense cache ``{"k", "v"}`` (B, Smax, Hkv, D)
 or one layer of the paged arena (:class:`PagedKV`), which goes through the
-Hopper ``paged_attention_arena`` kernel.  No ``scaled_dot_product_attention``
+Hopper ``paged_attention_arena`` kernel for one token per slot and the
+``paged_verify_attention_arena`` kernel for the speculative verify step's
+several.  No ``scaled_dot_product_attention``
 anywhere: prefill attention and the projections are plain einsums.
 """
 from __future__ import annotations
@@ -22,7 +24,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import paged_attention_arena_op
+from repro_torch.kernels import (
+    paged_attention_arena_op,
+    paged_verify_attention_arena_op,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 ATTN_CHUNK = 1024  # KV chunk for the online-softmax path
@@ -204,7 +209,8 @@ def apply_attention(
 
       - prefill: cache None -> causal attention over x, new_cache {"k","v"}
       - decode: cache {"k","v"} (B, Smax, Hkv, D) or :class:`PagedKV`,
-        ``cache_pos`` (B,) per-slot positions; new_cache {"k_new","v_new"}
+        ``cache_pos`` (B,) per-slot positions of the S tokens' first;
+        new_cache {"k_new","v_new"} (B, S, Hkv, D)
     """
     if cfg.qk_norm or cfg.mrope or cfg.attn_softcap:
         raise NotImplementedError("the port's attention covers dense GQA")
@@ -224,24 +230,36 @@ def apply_attention(
                                   causal=causal, window=window)
         new_cache = {"k": k, "v": v}
     else:
-        # Decode: the cache is READ-ONLY here; the new token's (k, v)
-        # merges in closed form via online-softmax statistics and the
-        # caller writes it into the cache once per step.
-        if s != 1 or cache_pos is None or cache_pos.dim() != 1:
-            raise NotImplementedError("decode covers one token per slot at "
-                                      "per-slot positions")
+        # Decode: the cache is READ-ONLY here; the new tokens' (k, v) merge
+        # in closed form via online-softmax statistics and the caller
+        # writes them into the cache once per step.  s == 1 is the plain
+        # decode step; s > 1 is the speculative verify step, whose s new
+        # tokens sit at positions cache_pos .. cache_pos+s-1 and attend to
+        # each other under an intra-block causal mask.
+        if cache_pos is None or cache_pos.dim() != 1:
+            raise NotImplementedError("decode covers per-slot positions")
         hkv = k.shape[2]
         g = cfg.num_heads // cfg.kv_heads
-        q_pos = cache_pos.to(torch.int32)[:, None]
+        offs = torch.arange(s, dtype=torch.int32, device=x.device)
+        q_pos = cache_pos.to(torch.int32)[:, None] + offs[None, :]
         if isinstance(cache, PagedKV):
             if window:
                 raise NotImplementedError("paged arena: no sliding window")
-            o, m, l = paged_attention_arena_op(
-                q.reshape(b, hkv, g, hd).contiguous(), cache.k, cache.v,
-                cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale,
-                cache.block_tables, cache_pos, cache.quant_lens)
-            out_old, m_old, l_old = o[:, :, :, None], m[..., None], \
-                l[..., None]
+            if s == 1:
+                o, m, l = paged_attention_arena_op(
+                    q.reshape(b, hkv, g, hd).contiguous(), cache.k, cache.v,
+                    cache.k_codes, cache.k_scale, cache.v_codes,
+                    cache.v_scale, cache.block_tables, cache_pos,
+                    cache.quant_lens)
+                out_old, m_old, l_old = o[:, :, :, None], m[..., None], \
+                    l[..., None]
+            else:
+                # every row reads the committed prefix (< cache_pos)
+                out_old, m_old, l_old = paged_verify_attention_arena_op(
+                    q.reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)
+                    .contiguous(), cache.k, cache.v, cache.k_codes,
+                    cache.k_scale, cache.v_codes, cache.v_scale,
+                    cache.block_tables, cache_pos, cache.quant_lens)
         else:
             smax = cache["k"].shape[1]
             k_pos = torch.arange(smax, dtype=torch.int32, device=x.device)
@@ -249,17 +267,35 @@ def apply_attention(
                 q, cache["k"], cache["v"], q_positions=q_pos,
                 k_positions=k_pos, causal=True, window=window,
                 kv_valid=cache_pos, return_stats=True,
-            )  # (b,h,g,1,dh), (b,h,g,1), (b,h,g,1)
+            )  # (b,h,g,S,dh), (b,h,g,S), (b,h,g,S)
         qg = q.reshape(b, s, hkv, g, hd)
         scale = 1.0 / math.sqrt(hd)
-        s_new = _einsum_bf16("bqhgd,bqhd->bhgq", qg, k).float() * scale
-        m_new = torch.maximum(m_old, s_new)
-        alpha = torch.exp(m_old - m_new)
-        p_new = torch.exp(s_new - m_new)
-        v_b = v.reshape(b, 1, hkv, 1, hd).permute(0, 2, 3, 1, 4)
-        num = (out_old.float() * alpha[..., None]
-               + p_new[..., None] * v_b.float())
-        den = l_old * alpha + p_new
+        if s == 1:
+            s_new = _einsum_bf16("bqhgd,bqhd->bhgq", qg, k).float() * scale
+            m_new = torch.maximum(m_old, s_new)
+            alpha = torch.exp(m_old - m_new)
+            p_new = torch.exp(s_new - m_new)
+            v_b = v.reshape(b, 1, hkv, 1, hd).permute(0, 2, 3, 1, 4)
+            num = (out_old.float() * alpha[..., None]
+                   + p_new[..., None] * v_b.float())
+            den = l_old * alpha + p_new
+        else:
+            # Intra-block attention of the s new tokens over themselves:
+            # query row i sees new token j iff j <= i (positions are
+            # consecutive, so the sliding window reduces to j > i - w).
+            s_blk = _einsum_bf16("bqhgd,bjhd->bhgqj", qg, k).float() * scale
+            blk_ok = offs[None, :] <= offs[:, None]           # (Sq, Sj)
+            if window and window > 0:
+                blk_ok = blk_ok & (offs[None, :] > offs[:, None] - window)
+            s_blk = torch.where(blk_ok[None, None, None], s_blk,
+                                _mask_value())
+            m_new = torch.maximum(m_old, s_blk.amax(dim=-1))
+            alpha = torch.exp(m_old - m_new)
+            p_blk = torch.exp(s_blk - m_new[..., None])
+            # f32 x f32, as the JAX package's einsum of p_blk and v
+            pv = torch.einsum("bhgqj,bjhd->bhgqd", p_blk, v.float())
+            num = out_old.float() * alpha[..., None] + pv
+            den = l_old * alpha + p_blk.sum(dim=-1)
         out = num / torch.clamp(den, min=1e-30)[..., None]
         out = out.to(COMPUTE_DTYPE).movedim(3, 1)  # (b, S, h, g, dh)
         out = out.reshape(b, s, hkv * g, hd)

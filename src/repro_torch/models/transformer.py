@@ -232,14 +232,18 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
 
 
 def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
-    """One decode step of the slot arena: ``tokens`` (B, 1), ``pos`` (B,)
-    int32 per-slot positions.  Returns (logits (B, 1, V), updates).
+    """One decode step of the slot arena: ``tokens`` (B, S), ``pos`` (B,)
+    int32 per-slot positions.  S == 1 is the plain step; S > 1 is the
+    speculative verify step, whose S tokens occupy positions pos ..
+    pos+S-1 of each slot and get logits back for every position.  Returns
+    (logits (B, S, V), updates).
 
-    With dense caches the new K/V row of each slot is written in place at
-    its position (``_merge_decode_updates``) and ``updates`` is the cache.
-    With paged caches (:class:`~repro_torch.models.layers.PagedKV` leaves)
-    ``updates`` holds each layer's ``{"k_new", "v_new"}`` (B, 1, Hkv, D),
-    blocks stacked on a leading axis, for the arena to scatter to pages."""
+    With dense caches the S new K/V rows of each slot are written in place
+    from its position (``_merge_decode_updates``) and ``updates`` is the
+    cache.  With paged caches (:class:`~repro_torch.models.layers.PagedKV`
+    leaves) ``updates`` holds each layer's ``{"k_new", "v_new"}``
+    (B, S, Hkv, D), blocks stacked on a leading axis, for the arena to
+    scatter to pages."""
     plan = plan_stack(cfg)
     _check_supported(cfg, plan)
     x = _embed(params, tokens)
@@ -276,19 +280,23 @@ def _is_paged(caches) -> bool:
 
 
 def _merge_decode_updates(new_caches, caches, cache_pos):
-    """Write each layer's new K/V token row into the dense cache buffers at
-    every slot's own position, in place; returns ``caches``."""
+    """Write each layer's S new K/V token rows into the dense cache buffers
+    from every slot's own position, in place; returns ``caches``.  As the
+    JAX package's dynamic-update-slice, a start past ``Smax - S`` is
+    clamped so the S rows fit."""
     rows = torch.arange(cache_pos.shape[0], device=cache_pos.device)
-    p = cache_pos.long()
     for part, stacked in (("prefix", False), ("blocks", True)):
         for name, c in new_caches[part].items():
             for key, nk in (("k", "k_new"), ("v", "v_new")):
                 buf = caches[part][name][key]
-                upd = c[nk][..., 0, :, :].to(buf.dtype)  # (·, B, H, D)
+                upd = c[nk].to(buf.dtype)                # (·, B, S, H, D)
+                s, smax = upd.shape[-3], buf.shape[-3]
+                p = (cache_pos.long().clamp(max=smax - s)[:, None]
+                     + torch.arange(s, device=cache_pos.device)[None, :])
                 if stacked:
-                    buf[:, rows, p] = upd
+                    buf[:, rows[:, None], p] = upd
                 else:
-                    buf[rows, p] = upd
+                    buf[rows[:, None], p] = upd
     return caches
 
 

@@ -453,6 +453,20 @@ class ClusterRuntime:
     # ------------------------------------------------------------------
     # Start-of-life stages (per route)
     # ------------------------------------------------------------------
+    def _spec_k_for(self, decision) -> int:
+        """The draft budget a starting request decodes with: 0 when
+        speculation is off; the controller's per-request pick (capped at
+        cfg.spec_k) under spec_adaptive when a decision carries one —
+        pool hits skip the controller and fall back to the uniform
+        cfg.spec_k, as does non-adaptive operation."""
+        cfg = self.cfg
+        if cfg.spec_k <= 0:
+            return 0
+        if cfg.spec_adaptive and decision is not None:
+            return min(max(int(getattr(decision, "spec_k", 0)), 0),
+                       cfg.spec_k)
+        return cfg.spec_k
+
     def _maybe_refetch_smaller(self, req: Request, dw: DecodeWorker,
                                hit: TierHit, now: float) -> float:
         """Tier-aware fetch routing: ask the controller to trade fetching
@@ -553,8 +567,9 @@ class ClusterRuntime:
                         pool_hit=True,
                         profile=entry.payload[0].strategy.short_name(),
                         wire_bytes=int(entry.wire_bytes), breakdown=bd,
-                        ttft=(now + cost) - req.arrival, route=route.name)
-            dw.occupy(slot, first)
+                        ttft=(now + cost) - req.arrival, route=route.name,
+                        spec_k=self._spec_k_for(None))
+            dw.occupy(slot, first, prompt=tokens)
             return cost, busy
 
         # ---- miss: real prefill into the slot (serialized on the route's
@@ -583,8 +598,9 @@ class ClusterRuntime:
                     wire_bytes=int(wire), breakdown=bd,
                     ttft=(now + end) - req.arrival, route=route.name,
                     pool_write=t_compress + wr.t_wait + wr.t_comm,
-                    ctx=ctx, decision=decision)
-        dw.occupy(slot, first)
+                    ctx=ctx, decision=decision,
+                    spec_k=self._spec_k_for(decision))
+        dw.occupy(slot, first, prompt=tokens)
         return end, end
 
     def _start_request_pd(self, req: Request, route: Route, now: float,
@@ -622,8 +638,9 @@ class ClusterRuntime:
             slot = Slot(req=req, idx=idx, toks=[first], pool_hit=True,
                         profile=entry.payload[0].strategy.short_name(),
                         wire_bytes=int(entry.wire_bytes), breakdown=bd,
-                        ttft=(now + end) - req.arrival, route=route.name)
-            dw.occupy(slot, first)
+                        ttft=(now + end) - req.arrival, route=route.name,
+                        spec_k=self._spec_k_for(None))
+            dw.occupy(slot, first, prompt=tokens)
             return end, busy
 
         # ---- cold request: the full PD critical path.  The prefill
@@ -670,8 +687,9 @@ class ClusterRuntime:
                     profile=profile.strategy.short_name(),
                     wire_bytes=int(wire_bytes), breakdown=bd,
                     ttft=(now + end) - req.arrival, route=route.name,
-                    ctx=ctx, decision=decision)
-        dw.occupy(slot, first)
+                    ctx=ctx, decision=decision,
+                    spec_k=self._spec_k_for(decision))
+        dw.occupy(slot, first, prompt=tokens)
         return end, busy
 
     # ------------------------------------------------------------------
@@ -696,6 +714,15 @@ class ClusterRuntime:
             # Slot.ctx carries the route), so each link's drift is learned
             # separately.
             self.controller.observe(slot.ctx, slot.decision, observed)
+        if self.controller is not None and slot.drafts_offered > 0:
+            # Accept-rate feedback for controller-adaptive speculation:
+            # the realized per-draft acceptance on this (workload, route),
+            # feeding the EWMA behind Decision.spec_k (DESIGN.md §15).
+            observe_accept = getattr(self.controller, "observe_accept",
+                                     None)
+            if observe_accept is not None:
+                observe_accept(req.workload, slot.route,
+                               slot.drafts_accepted / slot.drafts_offered)
         self.completed.append(ServedRequest(
             rid=req.rid, workload=req.workload, slo_class=req.slo_class,
             text=self.tok.decode(toks), tokens=toks, profile=slot.profile,
@@ -704,7 +731,11 @@ class ClusterRuntime:
             ttft=slot.ttft, slot=slot.idx, route=slot.route,
             breakdown=slot.breakdown, t_pool_write=slot.pool_write,
             slo_metric=metric, t_slo=req.t_slo,
-            slo_violated=req.slo_violated))
+            slo_violated=req.slo_violated, spec_k=slot.spec_k,
+            verify_steps=slot.verify_steps,
+            spec_committed=slot.spec_committed,
+            drafts_offered=slot.drafts_offered,
+            drafts_accepted=slot.drafts_accepted))
         self.scheduler.finish(req.rid)
         dw.release(slot)             # returns the local arena slot id
         self._prompts.pop(req.rid, None)

@@ -7,7 +7,9 @@ single-engine surface (``submit`` / ``step`` / ``run`` / ``summary``,
 ``serving/engine.py``.  Both serving scenarios (``RuntimeConfig.mode``):
 ``"pool"`` (KV-disaggregated prefix caching) and ``"pd"`` (PD separation:
 prefill -> compress -> serialized wire -> decompress -> decode on the
-critical path).  The one-shot ``DisaggregatedEngine`` is not ported yet.
+critical path).  Speculative decoding (``RuntimeConfig.spec_k``,
+``spec_kind``, ``spec_adaptive``) runs in either.  The one-shot
+``DisaggregatedEngine`` is not ported yet.
 """
 from __future__ import annotations
 

@@ -10,12 +10,14 @@ The counterpart of the JAX package's ``serving/workers.py``:
   with per-slot block tables, read in place by the Hopper
   ``paged_attention_arena`` kernel), advanced by ONE masked decode step
   per iteration with one batched host pull; plus its KV tier hierarchy.
+  With ``spec_k > 0`` an iteration with drafts is ONE masked multi-token
+  verify step instead (the paged arena reads through the Hopper
+  ``paged_verify_attention_arena`` kernel).
 
 Both read the model through a shared :class:`ModelHandle`, which loads
 the cached reference model on first access unless the caller sets
 ``cfg``/``params`` — so a runtime built for seeded random weights never
-needs the cache.  Speculative decoding is not ported yet: ``spec_k > 0``
-raises NotImplementedError.
+needs the cache.
 """
 from __future__ import annotations
 
@@ -172,10 +174,16 @@ class RuntimeConfig:
     # Total pool pages incl. the scratch page 0; None sizes it
     # worst-case-safe: n_slots * ceil(max_len / page_size) + 1.
     arena_pages: Optional[int] = None
-    # Speculative + lookahead decoding (DESIGN.md §15): not ported yet,
-    # spec_k > 0 raises NotImplementedError.
+    # Speculative + lookahead decoding (DESIGN.md §15).  spec_k = 0 keeps
+    # the one-token-per-iteration arena decode; spec_k > 0 turns each
+    # iteration into a draft phase (up to k tokens per slot) and ONE
+    # masked multi-token verify step.
     spec_k: int = 0
+    # Draft source: "ngram" (suffix-match lookahead over prompt + output)
+    # or "model" (a draft model's own dense arena; here the target's).
     spec_kind: str = "ngram"
+    # True: the controller's per-route accept-rate estimate picks each
+    # request's k from spec_candidates (capped at spec_k).
     spec_adaptive: bool = False
     spec_candidates: Tuple[int, ...] = (0, 2, 4)
 
@@ -210,7 +218,9 @@ class ServedRequest:
     slo_metric: str = "jct"
     t_slo: float = 0.0
     slo_violated: bool = False
-    # Speculative-decode outcome (always the plain-decode values here).
+    # Speculative-decode outcome (DESIGN.md §15): the k this request ran
+    # with, verify steps taken, tokens committed by them, and the draft
+    # offer/accept tallies behind the controller's accept-rate feedback.
     spec_k: int = 0
     verify_steps: int = 0
     spec_committed: int = 0
@@ -245,6 +255,13 @@ class Slot:
     # Controller feedback deferred to _finish (realized critical path).
     ctx: Optional[ServiceContext] = None
     decision: Optional[Decision] = None
+    # Speculative decode state: this slot's draft budget and its running
+    # verify/accept tallies.
+    spec_k: int = 0
+    verify_steps: int = 0
+    spec_committed: int = 0
+    drafts_offered: int = 0
+    drafts_accepted: int = 0
 
 
 class ModelHandle:
@@ -389,9 +406,6 @@ class DecodeWorker:
 
     def __init__(self, wid: int, model: ModelHandle, cfg: RuntimeConfig,
                  n_slots: int, store: Any):
-        if cfg.spec_k > 0:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "to the PyTorch runtime yet")
         self.wid = wid
         self.name = f"d{wid}"
         self.model = model
@@ -414,6 +428,10 @@ class DecodeWorker:
         self._qcodes: Any = None
         self._qscales: Any = None
         self._quant_len = np.zeros(n_slots, np.int32)
+        # Speculative decode state: the draft proposer (built when a
+        # speculative slot first lands) and the verify step per width.
+        self._draft: Any = None
+        self._verify_fns: Dict[int, Any] = {}
 
     @property
     def _pps(self) -> int:
@@ -528,10 +546,41 @@ class DecodeWorker:
         return int(first), t_decompress
 
     # ------------------------------------------------------------------
-    def occupy(self, slot: Slot, first: int) -> None:
+    def draft(self):
+        """The worker's draft proposer (cfg.spec_kind), built lazily."""
+        if self._draft is None:
+            from repro_torch.serving.speculative import ModelDraft, NGramDraft
+            if self.cfg.spec_kind == "model":
+                self._draft = ModelDraft(self.model, self.cfg.seq,
+                                         self.n_slots, self.max_len)
+            else:
+                self._draft = NGramDraft()
+        return self._draft
+
+    def _verify_fn(self, width: int):
+        """The multi-token verify step for ``width``, built once per
+        speculation width."""
+        fn = self._verify_fns.get(width)
+        if fn is None:
+            from repro_torch.core.quality import (
+                _paged_verify_steps,
+                _verify_steps,
+            )
+            if self.cfg.paged:
+                fn = _paged_verify_steps(self.model.cfg.name,
+                                         self.cfg.page_size, width)
+            else:
+                fn = _verify_steps(self.model.cfg.name, self.max_len, width)
+            self._verify_fns[width] = fn
+        return fn
+
+    def occupy(self, slot: Slot, first: int,
+               prompt: Optional[Sequence[int]] = None) -> None:
         self.slots[slot.req.rid] = slot
         self._positions[slot.idx] = self.cfg.seq
         self._last_tok[slot.idx] = first
+        if slot.spec_k > 0 and prompt is not None:
+            self.draft().start(slot.idx, slot.req.rid, prompt, first)
 
     def release(self, slot: Slot) -> None:
         self.free_slots.append(slot.idx)
@@ -539,12 +588,30 @@ class DecodeWorker:
         if self.cfg.paged and self.page_table is not None:
             self.page_table.release(slot.idx)
             self._quant_len[slot.idx] = 0
+        if slot.spec_k > 0 and self._draft is not None:
+            self._draft.stop(slot.idx, slot.req.rid)
 
     # ------------------------------------------------------------------
     def decode_iteration(self, active: List[Slot]) -> float:
-        """Advance every slot in ``active`` one token with a SINGLE masked
-        arena call and one batched host pull.  Returns the measured wall
-        seconds."""
+        """Advance every slot in ``active`` with a SINGLE masked arena call
+        and one batched host pull.  Without speculation (or when no slot
+        has a draft this round) that is the one-token decode step.  With
+        drafts it is ONE multi-token verify step: each slot commits the
+        longest draft prefix the target would have emitted plus the bonus
+        token (DESIGN.md §15), 1..width tokens per slot.  Returns the
+        measured wall seconds."""
+        proposals: Dict[int, List[int]] = {}
+        if self.cfg.spec_k > 0:
+            spec = [s for s in active if s.spec_k > 0]
+            if spec:
+                items = [(s.idx, s.req.rid, int(self._last_tok[s.idx]),
+                          int(self._positions[s.idx])) for s in spec]
+                budgets = {s.idx: s.spec_k for s in spec}
+                proposals = {i: d for i, d in
+                             self.draft().propose_all(items, budgets).items()
+                             if d}
+        if proposals:
+            return self._verify_iteration(active, proposals)
         mask = np.zeros(self.n_slots, bool)
         for slot in active:
             mask[slot.idx] = True
@@ -581,5 +648,73 @@ class DecodeWorker:
             slot.toks.append(t)
             self._last_tok[slot.idx] = t
             self._positions[slot.idx] += 1
+            if slot.spec_k > 0 and self._draft is not None:
+                self._draft.commit(slot.idx, slot.req.rid, [t])
+        self.decode_steps += 1
+        return wall
+
+    def _verify_iteration(self, active: List[Slot],
+                          proposals: Dict[int, List[int]]) -> float:
+        """One masked multi-token verify step over the arena.  Every
+        active slot rides along at its own draft length (no drafts = a
+        plain one-token step inside the wide call); rejected draft
+        positions never advance a slot and, paged, their over-ensured
+        tail pages are rolled back before the pages can leak."""
+        from repro_torch.serving.speculative import accept_length
+        width = max(len(d) for d in proposals.values()) + 1
+        mask = np.zeros(self.n_slots, bool)
+        toks = np.zeros((self.n_slots, width), np.int32)
+        for slot in active:
+            mask[slot.idx] = True
+            toks[slot.idx, 0] = self._last_tok[slot.idx]
+            for j, d in enumerate(proposals.get(slot.idx, [])):
+                toks[slot.idx, 1 + j] = d
+        fn = self._verify_fn(width)
+        self.ensure_arena()
+        dev = self.model.device
+
+        def dev_t(a):
+            return torch.as_tensor(a, device=dev)
+
+        if self.cfg.paged:
+            # Ensure through the worst-case commit (all drafts accepted);
+            # the rejected tail is released again right after the verify.
+            for slot in active:
+                need = (int(self._positions[slot.idx]) + 1
+                        + len(proposals.get(slot.idx, [])))
+                self.page_table.ensure(slot.idx, need)
+            t0 = time.perf_counter()
+            out, self._arena = fn(
+                self.model.params, self._arena, self._qcodes,
+                self._qscales, dev_t(self._block_tables()),
+                dev_t(self._quant_len), dev_t(toks),
+                dev_t(self._positions), dev_t(mask))
+        else:
+            t0 = time.perf_counter()
+            out, self._arena = fn(
+                self.model.params, self._arena, dev_t(toks),
+                dev_t(self._positions), dev_t(mask))
+        # lint: sync-ok(the step's single sanctioned sync - one batched pull)
+        out = np.asarray(out.cpu())
+        wall = time.perf_counter() - t0
+        for slot in active:
+            drafts = proposals.get(slot.idx, [])
+            row = out[slot.idx]
+            a = accept_length(drafts, row)
+            needed = slot.req.out_tokens + 1 - len(slot.toks)
+            c = min(a + 1, max(needed, 1))
+            committed = [int(row[j]) for j in range(c)]
+            slot.toks.extend(committed)
+            self._last_tok[slot.idx] = committed[-1]
+            self._positions[slot.idx] += c
+            slot.verify_steps += 1
+            slot.spec_committed += c
+            slot.drafts_offered += len(drafts)
+            slot.drafts_accepted += min(a, c - 1)
+            if slot.spec_k > 0 and self._draft is not None:
+                self._draft.commit(slot.idx, slot.req.rid, committed)
+            if self.cfg.paged and drafts:
+                self.page_table.release_tail(
+                    slot.idx, int(self._positions[slot.idx]))
         self.decode_steps += 1
         return wall

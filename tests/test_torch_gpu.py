@@ -7,9 +7,9 @@ The file imports no JAX, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Tolerances: quant_pack and dequant_unpack bit for bit; the Pallas-
-interface paged attention within atol 2e-5 / rtol 1e-4 (f32 sums in
-another order); the arena entry's m and l within rtol 1e-5 and its bf16
-output within 2 bf16 ulps.
+interface paged (verify) attention within atol 2e-5 / rtol 1e-4 (f32 sums
+in another order); the arena entries' m and l within rtol 1e-5 and their
+bf16 output within 2 bf16 ulps.
 """
 import numpy as np
 import pytest
@@ -21,6 +21,8 @@ from repro_torch.kernels import (  # noqa: E402
     launches,
     paged_attention_arena_op,
     paged_attention_op,
+    paged_verify_attention_arena_op,
+    paged_verify_attention_op,
     quant_pack_op,
     reset_launches,
 )
@@ -133,6 +135,55 @@ def test_paged_attention_arena(cuda, seed):
     assert _bf16_ulps(out, r_out) <= 2
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("b,hkv,w,gq,d,s,group,ps", [
+    (2, 2, 3, 4, 64, 256, 32, 16),
+    (3, 8, 5, 4, 128, 1072, 64, 16),
+])
+def test_paged_verify_attention(cuda, bits, b, hkv, w, gq, d, s, group, ps):
+    gen = torch.Generator(device=cuda).manual_seed(bits + s + w)
+    pools, bt = _pallas_pools(gen, cuda, b, hkv, s, d, bits, group, ps)
+    q = torch.randn(b, hkv, w, gq, d, generator=gen, device=cuda)
+    lens = torch.tensor([s - w, s // 2 - 3, 1][:b], dtype=torch.int32,
+                        device=cuda)
+    got = paged_verify_attention_op(q, *pools, bt, lens, bits=bits,
+                                    group=group)
+    want = R.paged_verify_attention_ref(q, *pools, bt, lens, bits, group)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    # W = 1 is the one-token kernel
+    one = paged_verify_attention_op(q[:, :, :1].contiguous(), *pools, bt,
+                                    lens, bits=bits, group=group)
+    dec = paged_attention_op(q[:, :, 0].contiguous(), *pools, bt, lens,
+                             bits=bits, group=group)
+    torch.testing.assert_close(one[:, :, 0], dec, atol=2e-5, rtol=1e-4)
+    # scratch page 0 poisoned, beyond-length entries pointed at it
+    bt0 = bt.clone()
+    bt0[1, 1:] = 0
+    short = lens.clamp(max=ps - w + 1)
+    a = paged_verify_attention_op(q, *pools, bt0, short, bits=bits,
+                                  group=group)
+    poisoned = [p.clone() for p in pools]
+    poisoned[0][0] = 7 if bits == 4 else 127
+    poisoned[1][0] = 1e9
+    b2 = paged_verify_attention_op(q, *poisoned, bt0, short, bits=bits,
+                                   group=group)
+    assert torch.equal(a, b2)
+
+
+@pytest.mark.parametrize("seed,w", [(0, 2), (1, 5)])
+def test_paged_verify_attention_arena(cuda, seed, w):
+    args = list(_arena_case(cuda, seed, pps=67))
+    b, hkv, gq, d = args[0].shape
+    gen = torch.Generator(device=cuda).manual_seed(10 + seed)
+    args[0] = torch.randn(b, hkv, gq, w, d, generator=gen,
+                          device=cuda).to(torch.bfloat16)
+    out, m, l = paged_verify_attention_arena_op(*args)
+    r_out, r_m, r_l = R.paged_verify_attention_arena_ref(*args)
+    torch.testing.assert_close(m, r_m, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    assert _bf16_ulps(out, r_out) <= 2
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(8, 64, device=cuda)
     with pytest.raises(ValueError):
@@ -141,6 +192,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         quant_pack_op(x.t())                            # not contiguous
     with pytest.raises(TypeError):
         quant_pack_op(x.to(torch.float16))
+    args = list(_arena_case(cuda, 0, b=1, pps=4))
+    args[0] = torch.zeros(1, 8, 4, 9, 128, dtype=torch.bfloat16,
+                          device=cuda)                  # 36 rows > 32
+    with pytest.raises(ValueError):
+        paged_verify_attention_arena_op(*args)
 
 
 def test_runtime_launches_every_kernel(cuda):
@@ -177,3 +233,44 @@ def test_runtime_launches_every_kernel(cuda):
     assert counts["paged_attention_arena_op"] > 0
     assert all(np.all(np.asarray(r.tokens) < cfg.vocab_size)
                for r in rt.completed)
+
+
+def test_speculative_runtime_launches_the_verify_kernel(cuda):
+    """A reduced llama3.1-8b served speculatively on the paged arena takes
+    its verify steps through the verify kernel.  The two-model draft (the
+    target as its own draft) always offers drafts; n-gram lookahead finds
+    none in a random model's output."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import Profile
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import GBPS, BandwidthTrace, SchedulerConfig
+    from repro_torch.serving.engine import RuntimeConfig, ServingRuntime
+
+    cfg = get_config("llama3.1-8b-reduced")
+    rt = ServingRuntime(
+        static_profile=Profile(StrategyConfig(
+            quantizer="uniform", key_bits=8, value_bits=8,
+            granularity="per_token", symmetric=True, group_size=16),
+            cr=2.0, s_enc=5e8, s_dec=5e8),
+        config=RuntimeConfig(seq=64, decode_tokens=12, mode="pd",
+                             paged=True, page_size=8, spec_k=4,
+                             spec_kind="model"),
+        trace=BandwidthTrace.constant(100 * GBPS),
+        scheduler=SchedulerConfig(max_slots=4, max_prefills_per_step=2),
+        device=cuda)
+    rt.model_cfg = cfg
+    rt.params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    reset_launches()
+    for seed in (0, 1, 0):
+        rt.submit("codelike", prompt_seed=seed)
+    rt.run()
+    counts = launches()
+    done = rt.completed
+    assert len(done) == 3
+    assert sum(r.drafts_offered for r in done) > 0
+    assert sum(r.verify_steps for r in done) > 0
+    assert counts["paged_verify_attention_arena_op"] > 0
+    for dw in rt.decode_workers:
+        dw.page_table.check()
+        assert dw.page_table.free_pages == dw.page_table.num_pages - 1

@@ -246,12 +246,6 @@ def test_runtime_config_fields_and_defaults_match():
     assert J().arena_max_len == P().arena_max_len
 
 
-def test_spec_k_is_not_ported_yet():
-    from repro_torch.serving.engine import RuntimeConfig, ServingRuntime
-    with pytest.raises(NotImplementedError):
-        ServingRuntime(config=RuntimeConfig(spec_k=2), device="cpu")
-
-
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
             "repro_torch.kernels, repro_torch.models.convert; "
