@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Four phases, in order; any failure exits non-zero and no phase's error
+Five phases, in order; any failure exits non-zero and no phase's error
 is caught:
 
 1. Build: compile every Hopper kernel of ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, in parallel) into ``build/kernels``.
 2. Kernels: on the card, hold each kernel against its plain PyTorch
    version at the main path's shapes (plus int4, ragged-T, staircase and
-   scratch-page cases), and time it, its plain version and, where one
-   PyTorch call computes the same function, that call.
+   scratch-page cases; the Hadamard kernel also bit for bit against
+   numpy's ``x @ h`` on the host), and time it, its plain version and,
+   where one PyTorch call computes the same function, that call.
 3. Runtime: serve the pinned 8-request pattern PD-separated on the paged
    arena of ``llama3.1-8b`` at full width with seeded random bf16
    weights, count each kernel's launches on that run, and check the
@@ -23,10 +24,21 @@ is caught:
    draft), which drafts every step; count the verify kernel's launches on
    that run, check the page tables, and hold one full-width W = 5 verify
    step through the kernel against the plain path.
+5. Offline profiling, the controller and one-shot PD serving: one
+   full-width prefill's KV through the pipeline's device stages (the
+   Hadamard kernel, quant_pack, dequant_unpack) against its host stages
+   (equal wire bytes, restored KV within 1e-5 of row scale) for a
+   Hadamard + int8 per-token profile and mixhq; then calibrated head
+   scores, the baselines and that profile measured on the model's own
+   device KV, a short Bayesian search, and ``DisaggregatedEngine``
+   batches through the ``ServiceAwareController`` over those profiles at
+   1 and 100 Gb/s and with the static mixhq profile; the Hadamard kernel
+   must launch on that path.
 
 Prints per-request TTFT/JCT/wire bytes/breakdowns, the speculative run's
 verify steps, committed tokens and accept rates beside the plain run's
-TTFT and JCT, one JSON line of kernel results, the card's name and power
+TTFT and JCT, phase 5's profiles and per-batch breakdowns, one JSON line
+of kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Exits
 with an error, printing no result, when there is no CUDA device or the
 port's sources are missing.
@@ -449,6 +461,77 @@ def verify_kernel_phase(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: the Hadamard kernel
+# ---------------------------------------------------------------------------
+def _bits_equal(np, a, b):
+    return a.view(np.int32) == b.view(np.int32)
+
+
+def hadamard_kernel_phase(torch, dev):
+    """hadamard at the pipeline's shape (one request's K, (L·Hkv·SEQ, D)),
+    f32 and bf16 in, at D 64 and 256 and at ragged T, against its plain
+    version (max |diff| <= 1e-5 of the row's L2 norm) and, at the main
+    shape, against numpy's ``x @ h`` on the host (the share of bit-equal
+    outputs).  Returns (results entry, outputs bit-equal to numpy)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.transforms import hadamard_matrix
+    from repro_torch.kernels import ops, ref
+
+    cfg = get_config(ARCH)
+    d = cfg.resolved_head_dim
+    t_main = cfg.num_layers * cfg.kv_heads * SEQ
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def data(t, dd, dt):
+        x = torch.randn(t, dd, generator=gen, device=dev) * 3
+        x[:, 5] *= 40          # an outlier channel, which the rotation spreads
+        return x.to(dt)
+
+    worst, host_exact = 0.0, True
+    for t, dd, dt in [(t_main, d, f32), (t_main, d, bf16), (t_main, 64, f32),
+                      (t_main, 256, bf16), (4097, d, f32), (77, 256, bf16)]:
+        x = data(t, dd, dt)
+        got = ops.hadamard_op(x, out_dtype=f32)
+        want = ref.hadamard_ref(x, f32)
+        diff = (got - want).abs()
+        rel = float((diff.amax(dim=1)
+                     / x.float().norm(dim=1).clamp_min(1e-30)).max())
+        worst = max(worst, float(diff.max()))
+        line = (f"hadamard T={t} D={dd} {str(dt)[6:]} in: max|diff| / row "
+                f"norm {rel:.3g} against the plain version (tolerance 1e-5)")
+        check(rel <= 1e-5, f"hadamard T={t} D={dd} {dt}")
+        if t == t_main and dd == d:
+            host = x.float().cpu().numpy() @ hadamard_matrix(dd)
+            g = got.cpu().numpy()
+            same = _bits_equal(np, g, host)
+            line += (f"; bit-equal to numpy x @ h on the host: "
+                     f"{float(same.mean())}")
+            if not same.all():
+                host_exact = False
+                i, j = (int(a[0]) for a in np.nonzero(~same))
+                line += (f" (first difference at [{i}, {j}]: kernel "
+                         f"{g[i, j]!r}, numpy {host[i, j]!r})")
+        print(line)
+    x = data(t_main, d, f32)
+    xb = x.to(bf16)
+    h = ref.hadamard_table(d, dev)
+    n = x.numel()
+    nbytes = 2 * n * 4 + d * d * 4
+    entry = dict(
+        max_abs_err=worst,
+        ms=time_ms(torch, lambda: ops.hadamard_op(x, out_dtype=f32)),
+        plain_ms=time_ms(torch, lambda: ref.hadamard_ref(x, f32)),
+        library_ms=time_ms(torch, lambda: torch.matmul(x, h)),
+        bf16_in_ms=time_ms(torch, lambda: ops.hadamard_op(xb,
+                                                          out_dtype=f32)),
+        bytes_bound_ms=nbytes / PEAK_BYTES_S * 1e3)
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, 2 * n * d)
+    return entry, host_exact
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the serving runtime at full width
 # ---------------------------------------------------------------------------
 def model_setup(torch, dev):
@@ -740,6 +823,193 @@ def verify_reference_check(torch, strategy, cfg, params, dev):
     return err, scale, gap, same
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: offline profiling, the controller and the one-shot PD engine
+# ---------------------------------------------------------------------------
+P5_SEQ, P5_PROMPTS, P5_DECODE = 192, 4, 8     # profiling's quality runs
+P5_BATCH, P5_SERVE_DECODE, P5_ITERS = 4, 20, 4
+
+
+def _stage_clock(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def hadamard_int8():
+    """The device-quantizable Hadamard profile: rotation, then int8
+    per-token symmetric group-64 quantization, no entropy codec."""
+    from repro_torch.core.strategy import StrategyConfig
+
+    return StrategyConfig(transform="hadamard", quantizer="uniform",
+                          key_bits=8, value_bits=8, granularity="per_token",
+                          symmetric=True, group_size=GROUP)
+
+
+def wire_check(torch, dev, cfg, params, host_exact, strategies):
+    """One full-width prefill's KV through the pipeline's device stages
+    and through its host stages, for each strategy: equal total bytes;
+    payload bytes equal when the card's rotation equals numpy's bit for
+    bit (else codes differing at <= 1e-4 of positions); restored KV
+    within 1e-5 of each row's scale."""
+    import numpy as np
+    from repro_torch.core.codecs import decode_codes
+    from repro_torch.core.pipeline import CompressionPipeline
+    from repro_torch.core.quality import _prompts_for, extract_kv
+    from repro_torch.models.transformer import prefill
+
+    tokens, _ = _prompts_for("qalike", 1, SEQ, 0)
+    _, caches = prefill(cfg, params, {"tokens": torch.as_tensor(
+        tokens, dtype=torch.int32, device=dev)}, SEQ)
+    kv = extract_kv(cfg, caches, 0, SEQ)
+    del caches
+    host_kv = kv.to_host()
+    for name, strategy in strategies:
+        on_card = CompressionPipeline(strategy, device=dev)
+        on_host = CompressionPipeline(strategy)
+        t0 = _stage_clock(torch, dev)
+        comp_d = on_card.compress(kv)
+        t1 = _stage_clock(torch, dev)
+        rest_d = on_card.decompress(comp_d)
+        t2 = _stage_clock(torch, dev)
+        comp_h = on_host.compress(host_kv)
+        t3 = time.perf_counter()
+        rest_h = on_host.decompress(comp_h)
+        t4 = time.perf_counter()
+        check(comp_d.total_bytes() == comp_h.total_bytes(),
+              f"{name}: total bytes")
+        n = n_diff = 0
+        same = True
+        for a, b in zip(comp_d.k_buckets + comp_d.v_buckets,
+                        comp_h.k_buckets + comp_h.v_buckets):
+            same = same and a.payload == b.payload \
+                and np.array_equal(a.scale, b.scale)
+            count = int(np.prod(b.codes_shape))
+            ca = decode_codes(a.payload, a.bits, count, strategy.codec)
+            cb = decode_codes(b.payload, b.bits, count, strategy.codec)
+            n += count
+            n_diff += int((ca != cb).sum())
+        rel = 0.0
+        for got, want in ((rest_d.k, rest_h.k), (rest_d.v, rest_h.v)):
+            g = got.cpu().numpy()
+            row = np.abs(want).max(axis=-1, keepdims=True)
+            rel = max(rel, float((np.abs(g - want)
+                                  / np.maximum(row, 1e-30)).max()))
+        print(f"wire check {name} (one {SEQ}-token prefill, {kv.nbytes_wire()}"
+              f" source bytes): {comp_d.total_bytes()} bytes on the card "
+              f"and on the host, payload bytes equal: {same}, codes "
+              f"differing: {n_diff} of {n}; restored max|diff| / row scale "
+              f"{rel:.3g} (tolerance 1e-5); compress {(t1 - t0) * 1e3:.2f} ms"
+              f" on the card, {(t3 - t2) * 1e3:.2f} ms on the host; "
+              f"decompress {(t2 - t1) * 1e3:.2f} / {(t4 - t3) * 1e3:.2f} ms")
+        check(same if host_exact else n_diff <= 1e-4 * n,
+              f"{name}: payload bytes")
+        check(rel <= 1e-5, f"{name}: restored KV")
+
+
+def print_batch(label, r) -> None:
+    print(f"  {label}: profile {r.profile} kv_bytes={r.kv_bytes} "
+          f"wire_bytes={r.wire_bytes} prefill={r.t_prefill * 1e3:.2f}ms "
+          f"compress={r.t_compress * 1e3:.2f}ms comm={r.t_comm * 1e3:.2f}ms "
+          f"decompress={r.t_decompress * 1e3:.2f}ms "
+          f"decode={r.t_decode * 1e3:.2f}ms jct={r.jct * 1e3:.2f}ms "
+          f"agreement={r.agreement:.3f}")
+
+
+def profiling_phase(torch, dev, cfg, params):
+    """Calibrate head scores, measure the baselines and a Hadamard + int8
+    per-token profile on the model's own device KV, run a short BO search,
+    then serve one-shot PD batches through the controller over those
+    profiles at 1 and 100 Gb/s and one with the static mixhq profile.  The
+    launch counts are set to 0 just before and read just after.  Returns
+    the counts."""
+    from repro_torch.controller import ServiceAwareController
+    from repro_torch.core.quality import (
+        _prompts_for, calibrate_head_scores, extract_kv)
+    from repro_torch.core.strategy import BASELINES
+    from repro_torch.data.synthetic import WORKLOADS
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.profile_offline import (
+        build_profiles, search_and_build)
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving.engine import DisaggregatedEngine
+    from repro_torch.serving.network import GBPS, BandwidthTrace
+
+    ref = (cfg, params)
+    qk = dict(n_prompts=P5_PROMPTS, seq=P5_SEQ, decode_tokens=P5_DECODE)
+    _stage_clock(torch, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hs = calibrate_head_scores(n_prompts=P5_PROMPTS, seq=P5_SEQ, ref=ref)
+    check(hs.shape == (cfg.num_layers, cfg.kv_heads)
+          and bool((hs > 0).all()), "head scores")
+    tokens, _ = _prompts_for("qalike", 1, P5_SEQ, 1)
+    _, caches = prefill(cfg, params, {"tokens": torch.as_tensor(
+        tokens, dtype=torch.int32, device=dev)}, P5_SEQ)
+    samples = [extract_kv(cfg, caches, 0, P5_SEQ)]
+    del caches
+    strategies = list(BASELINES.values()) + [hadamard_int8()]
+    profiles = build_profiles(strategies, workloads=("qalike",),
+                              kv_samples=samples, quality_kwargs=qk,
+                              head_scores=hs, ref=ref)
+    t1 = time.perf_counter()
+    found, frontier = search_and_build(
+        workload="qalike", max_iters=P5_ITERS, ref=ref, kv_samples=samples,
+        quality_kwargs=qk)
+    t2 = time.perf_counter()
+    print(f"profiles (KV samples: one {P5_SEQ}-token prefill; quality: "
+          f"qalike, {P5_PROMPTS} prompts of {P5_SEQ} tokens, {P5_DECODE} "
+          f"teacher-forced tokens), measured in {t1 - t0:.2f} s:")
+    for p in profiles + found[1:]:
+        print(f"  {p.strategy.short_name():34s} cr={p.cr:.4f} "
+              f"s_enc={p.s_enc / 1e9:.4f} GB/s s_dec={p.s_dec / 1e9:.4f} "
+              f"GB/s quality={p.quality} mse={p.mse:.4g}")
+        check(p.cr > 0 and p.s_enc > 0 and p.s_dec > 0
+              and all(0.0 <= q <= 1.0 for q in p.quality.values()),
+              f"profile {p.strategy.short_name()}")
+    print(f"BO search, max_iters={P5_ITERS}, in {t2 - t1:.2f} s: "
+          f"{len(found) - 1} feasible at acc >= 0.97; frontier: "
+          + ", ".join(f"{pt.profile.strategy.short_name()} (acc "
+                      f"{pt.acc:.3f}, cr {pt.cr:.3f})" for pt in frontier))
+
+    controller = ServiceAwareController(
+        {w: profiles + found[1:] for w in WORKLOADS})
+    mixhq = next(p for p in profiles if p.strategy == BASELINES["mixhq"])
+
+    def engine(**kw):
+        # one engine per link: an engine's goodput estimator carries its
+        # link's history from batch to batch
+        return DisaggregatedEngine(ref=ref, device=dev, seq=P5_SEQ,
+                                   decode_tokens=P5_SERVE_DECODE,
+                                   batch=P5_BATCH, **kw)
+
+    # q_min 0: on random weights every lossy profile's agreement is far
+    # below a real budget, so the controller chooses on latency alone
+    print(f"one-shot PD serving, batch {P5_BATCH} x {P5_SEQ} tokens, "
+          f"{P5_SERVE_DECODE} decode tokens, q_min 0:")
+    served = [("controller, 1 Gb/s", engine(controller=controller), 1.0),
+              ("controller, 100 Gb/s", engine(controller=controller), 100.0),
+              ("static mixhq, 1 Gb/s", engine(static_profile=mixhq), 1.0)]
+    for i, (label, eng, gbps) in enumerate(served):
+        r = eng.serve("qalike", BandwidthTrace.constant(gbps * GBPS),
+                      q_min=0.0, seed=i)
+        print_batch(label, r)
+        check(r.tokens.shape == (P5_BATCH, P5_SERVE_DECODE + 1)
+              and bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              f"{label}: tokens")
+        check(r.kv_bytes == P5_BATCH * samples[0].nbytes_wire()
+              and 0 < r.wire_bytes, f"{label}: bytes")
+        check(abs(r.t_prefill + r.t_compress + r.t_comm + r.t_decompress
+                  + r.t_decode - r.jct) < 1e-9, f"{label}: JCT parts")
+    wall = _stage_clock(torch, dev) - t0
+    counts = launches()
+    print(f"phase 5: {wall:.2f} s wall; launches "
+          f"{counts}")
+    for k in ("hadamard_op", "quant_pack_op", "dequant_unpack_op"):
+        check(counts[k] > 0, f"{k} launched on the profiling path")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -767,6 +1037,7 @@ def main() -> int:
     # ---- 2. kernels ----
     results = kernel_phase(torch, dev)
     results["paged_verify_attention"] = verify_kernel_phase(torch, dev)
+    results["hadamard"], host_exact = hadamard_kernel_phase(torch, dev)
     torch.cuda.synchronize()
     for k, r in results.items():
         print(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -824,6 +1095,17 @@ def main() -> int:
           "full-width verify step through the kernel agrees with the plain "
           "path")
 
+    # ---- 5. offline profiling, controller, one-shot PD engine ----
+    from repro_torch.core.strategy import BASELINES
+    t5 = time.perf_counter()
+    wire_check(torch, dev, cfg, params, host_exact,
+               [("hadamard-int8", hadamard_int8()),
+                ("mixhq", BASELINES["mixhq"])])
+    counts = profiling_phase(torch, dev, cfg, params)
+    launches["hadamard"] = counts["hadamard_op"]
+    print(f"phase 5 with the wire check: {time.perf_counter() - t5:.2f} s "
+          f"wall")
+
     meta = {
         "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
                        "src/repro/kernels/quant_pack.py:76"),
@@ -834,6 +1116,8 @@ def main() -> int:
         "paged_verify_attention": (
             "src/repro_torch/kernels/csrc/paged_verify_attention.cu",
             "src/repro/kernels/paged_verify_attention.py:149"),
+        "hadamard": ("src/repro_torch/kernels/csrc/hadamard.cu",
+                     "src/repro/kernels/hadamard.py:37"),
     }
     kernels = []
     for k, (src, replaces) in meta.items():

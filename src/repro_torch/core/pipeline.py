@@ -14,8 +14,14 @@ prefix-KV pool stores (DESIGN.md §9).
 Device path: KV held as torch tensors (:class:`DeviceKVCache`) under a
 ``paged_eligible`` strategy quantizes with the Hopper ``quant_pack`` kernel
 (its plain version for CPU tensors), and a pipeline given a ``device``
-decompresses such payloads with ``dequant_unpack``.  The wire form is the
-host path's byte for byte; every other strategy takes the numpy stages.
+decompresses such payloads with ``dequant_unpack``.  Under
+``transform="hadamard"`` the transform stage runs on the device too (the
+Hopper ``hadamard`` kernel, one in-order FMA chain per output, which is
+numpy's ``x @ h`` bit for bit): a ``device_quantizable`` strategy feeds the
+rotated tensor straight to ``quant_pack``, any other pulls it to the host
+for the numpy quantizer; a pipeline given a ``device`` inverts it there.
+The wire form is the host path's byte for byte; every other strategy
+takes the numpy stages.
 """
 from __future__ import annotations
 
@@ -35,8 +41,13 @@ from repro_torch.core.quantizers import (
     quantize_tensor,
 )
 from repro_torch.core.strategy import SOURCE_BYTES, StrategyConfig, is_identity
-from repro_torch.core.transforms import apply_transform, invert_transform, transform_meta_bytes
-from repro_torch.core.strategy import paged_eligible
+from repro_torch.core.transforms import (
+    _next_pow2,
+    apply_transform,
+    invert_transform,
+    transform_meta_bytes,
+)
+from repro_torch.core.strategy import device_quantizable, paged_eligible
 
 HEADER_BYTES = 64  # fixed per-message framing overhead
 
@@ -112,6 +123,22 @@ class DeviceKVCache(KVCache):
                        self.v.float().cpu().numpy())
 
 
+def _sync(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for off
+    CUDA), so that a host clock read after it times the work."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _clock(devices) -> float:
+    """``time.perf_counter()`` read once the work queued on each of
+    ``devices`` has finished."""
+    for d in devices:
+        _sync(d)
+    return time.perf_counter()
+
+
 def _lh_index(num_layers: int, heads: int) -> np.ndarray:
     ls, hs = np.nonzero(np.ones((num_layers, heads), bool))
     return np.stack([ls, hs], 1).astype(np.int32)
@@ -159,6 +186,21 @@ def _device_dequantize(w: _BucketWire, shape, codec: str,
     x = dequant_unpack_op(codes.contiguous(), scales, bits=w.bits,
                           group=w.group_size, out_dtype=torch.float32)
     return x.reshape(L, H, S, D)
+
+
+def _rotate(x: torch.Tensor, pad_dim: int) -> torch.Tensor:
+    """The Hadamard stage on x's device: (..., D) -> (..., pad_dim) f32,
+    the channel axis zero-padded to ``pad_dim`` as ``hadamard_forward``
+    pads it, through the hadamard kernel.  H is symmetric, so the same
+    call inverts it."""
+    from repro_torch.kernels import hadamard_op
+
+    d = x.shape[-1]
+    flat = x.reshape(-1, d)
+    if pad_dim != d:
+        flat = torch.nn.functional.pad(flat, (0, pad_dim - d))
+    return hadamard_op(flat.contiguous(), out_dtype=torch.float32).reshape(
+        x.shape[:-1] + (pad_dim,))
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +258,42 @@ class CompressionPipeline:
     def _on_device(self, head_dim: int) -> bool:
         return paged_eligible(self.strategy, head_dim=head_dim)
 
+    def _quantize(self, k_t, v_t, k_ctx, v_ctx, shape,
+                  scores_of) -> CompressedKV:
+        """Stages Q and C of transformed host arrays (``scores_of()``
+        gives the K the default head scores are taken from)."""
+        cfg = self.strategy
+        scores = self.head_scores
+        if scores is None and cfg.quantizer in ("mixhq", "duo"):
+            scores = head_importance_scores(scores_of())
+        k_q = quantize_tensor(k_t, cfg, is_key=True, head_scores=scores)
+        v_q = quantize_tensor(v_t, cfg, is_key=False, head_scores=scores)
+        return CompressedKV(
+            strategy=cfg, shape=shape,
+            k_buckets=_encode_quantized(k_q, cfg.codec),
+            v_buckets=_encode_quantized(v_q, cfg.codec),
+            k_ctx=k_ctx, v_ctx=v_ctx,
+        )
+
+    def _compress_rotated(self, kv: "DeviceKVCache") -> CompressedKV:
+        """The Hadamard stage on the device, then ``quant_pack`` for a
+        device-quantizable strategy or the numpy quantizer otherwise."""
+        cfg = self.strategy
+        pad = _next_pow2(kv.head_dim)
+        ctx = {"orig_dim": kv.head_dim, "pad_dim": pad, "kind": "hadamard"}
+        k_t, v_t = _rotate(kv.k, pad), _rotate(kv.v, pad)
+        if device_quantizable(cfg, head_dim=pad):
+            return CompressedKV(
+                strategy=cfg, shape=tuple(kv.shape),
+                k_buckets=[_device_quantize(k_t, cfg.key_bits,
+                                            cfg.group_size, cfg.codec)],
+                v_buckets=[_device_quantize(v_t, cfg.value_bits,
+                                            cfg.group_size, cfg.codec)],
+                k_ctx=ctx, v_ctx=dict(ctx))
+        return self._quantize(k_t.cpu().numpy(), v_t.cpu().numpy(), ctx,
+                              dict(ctx), tuple(kv.shape),
+                              lambda: kv.k.float().cpu().numpy())
+
     # ------------------------------------------------------------------
     def compress(self, kv: KVCache) -> CompressedKV:
         cfg = self.strategy
@@ -228,6 +306,8 @@ class CompressionPipeline:
                     v_buckets=[_device_quantize(kv.v, cfg.value_bits,
                                                 cfg.group_size, cfg.codec)],
                     k_ctx={"kind": "none"}, v_ctx={"kind": "none"})
+            if cfg.transform == "hadamard" and not is_identity(cfg):
+                return self._compress_rotated(kv)
             kv = kv.to_host()
         if is_identity(cfg):
             payload = np.concatenate(
@@ -238,31 +318,25 @@ class CompressionPipeline:
 
         k_t, k_ctx = apply_transform(cfg.transform, kv.k, cfg.delta_group)
         v_t, v_ctx = apply_transform(cfg.transform, kv.v, cfg.delta_group)
-
-        scores = self.head_scores
-        if scores is None and cfg.quantizer in ("mixhq", "duo"):
-            scores = head_importance_scores(kv.k)
-
-        k_q = quantize_tensor(k_t, cfg, is_key=True, head_scores=scores)
-        v_q = quantize_tensor(v_t, cfg, is_key=False, head_scores=scores)
-
-        return CompressedKV(
-            strategy=cfg, shape=kv.shape,
-            k_buckets=_encode_quantized(k_q, cfg.codec),
-            v_buckets=_encode_quantized(v_q, cfg.codec),
-            k_ctx=k_ctx, v_ctx=v_ctx,
-        )
+        return self._quantize(k_t, v_t, k_ctx, v_ctx, kv.shape,
+                              lambda: kv.k)
 
     # ------------------------------------------------------------------
     def decompress(self, comp: CompressedKV) -> KVCache:
         cfg = comp.strategy
-        if self.device is not None and comp.identity_payload is None \
-                and paged_eligible(cfg, head_dim=comp.shape[3]):
-            return DeviceKVCache(
-                _device_dequantize(comp.k_buckets[0], comp.shape, cfg.codec,
-                                   self.device),
-                _device_dequantize(comp.v_buckets[0], comp.shape, cfg.codec,
-                                   self.device))
+        if self.device is not None and comp.identity_payload is None:
+            if paged_eligible(cfg, head_dim=comp.shape[3]):
+                return DeviceKVCache(
+                    _device_dequantize(comp.k_buckets[0], comp.shape,
+                                       cfg.codec, self.device),
+                    _device_dequantize(comp.v_buckets[0], comp.shape,
+                                       cfg.codec, self.device))
+            if comp.k_ctx.get("kind") == "hadamard":
+                return DeviceKVCache(
+                    self._restore_rotated(cfg, comp.k_buckets, comp.shape,
+                                          comp.k_ctx),
+                    self._restore_rotated(cfg, comp.v_buckets, comp.shape,
+                                          comp.v_ctx))
         if comp.identity_payload is not None:
             n = int(np.prod(comp.shape))
             flat = np.frombuffer(comp.identity_payload, dtype=np.float16,
@@ -283,6 +357,21 @@ class CompressionPipeline:
         v = invert_transform(v_t, comp.v_ctx)
         return KVCache(k, v)
 
+    def _restore_rotated(self, cfg: StrategyConfig,
+                         wires: List[_BucketWire], shape,
+                         ctx: Dict[str, Any]) -> torch.Tensor:
+        """Dequantize one rotated tensor (``dequant_unpack`` for a
+        device-quantizable payload, else the numpy quantizer, moved to
+        the device), invert the Hadamard stage on the device and slice
+        back to ``orig_dim``."""
+        t_shape = self._transformed_shape(shape, ctx)
+        if device_quantizable(cfg, head_dim=ctx["pad_dim"]):
+            y = _device_dequantize(wires[0], t_shape, cfg.codec, self.device)
+        else:
+            y = torch.from_numpy(_decode_quantized(
+                wires, t_shape, cfg.codec).dequantize()).to(self.device)
+        return _rotate(y, ctx["pad_dim"])[..., :ctx["orig_dim"]]
+
     @staticmethod
     def _transformed_shape(shape, ctx) -> Tuple[int, int, int, int]:
         if ctx.get("kind") == "hadamard":
@@ -291,10 +380,14 @@ class CompressionPipeline:
 
     # ------------------------------------------------------------------
     def roundtrip(self, kv: KVCache) -> Tuple[KVCache, CompressedKV, float, float]:
-        """(restored, compressed, enc_seconds, dec_seconds)."""
-        t0 = time.perf_counter()
+        """(restored, compressed, enc_seconds, dec_seconds).  The clock
+        is read after the queued work of the input's device and of the
+        pipeline's ``device`` has finished."""
+        devices = ([kv.k.device] if isinstance(kv, DeviceKVCache) else []) \
+            + ([self.device] if self.device is not None else [])
+        t0 = _clock(devices)
         comp = self.compress(kv)
-        t1 = time.perf_counter()
+        t1 = _clock(devices)
         restored = self.decompress(comp)
-        t2 = time.perf_counter()
+        t2 = _clock(devices)
         return restored, comp, t1 - t0, t2 - t1

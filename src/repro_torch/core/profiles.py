@@ -5,6 +5,10 @@ measured compression ratio (bytes, metadata included), encode/decode
 throughputs (bytes/s of *uncompressed* KV processed, matching the paper's
 definition so that enc+dec time == V/s_p), and a quality score per workload
 when a quality function is provided.
+
+Samples may be :class:`~repro_torch.core.pipeline.DeviceKVCache`: the
+pipeline then runs its device stages on their device, and the timings are
+those of the device path.
 """
 from __future__ import annotations
 
@@ -14,9 +18,10 @@ from dataclasses import asdict, dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.kvcache import KVCache
-from repro_torch.core.pipeline import CompressionPipeline
+from repro_torch.core.pipeline import CompressionPipeline, DeviceKVCache
 from repro_torch.core.strategy import StrategyConfig, is_identity
 
 
@@ -67,6 +72,22 @@ IDENTITY_PROFILE = Profile(
 )
 
 
+def _sq_err(restored: KVCache, kv: KVCache) -> float:
+    """Sum of squared K and V errors: numpy when both sides are host
+    arrays, else float64 tensor ops on the samples' device."""
+    if not isinstance(kv, DeviceKVCache) \
+            and not isinstance(restored, DeviceKVCache):
+        return float(((restored.k - kv.k) ** 2).sum()
+                     + ((restored.v - kv.v) ** 2).sum())
+    dev = kv.k.device if isinstance(kv, DeviceKVCache) else restored.k.device
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    for got, want in ((restored.k, kv.k), (restored.v, kv.v)):
+        diff = (torch.as_tensor(got, device=dev).double()
+                - torch.as_tensor(want, device=dev).double())
+        total += (diff * diff).sum()
+    return float(total)
+
+
 def measure_profile(
     strategy: StrategyConfig,
     kv_samples: Sequence[KVCache],
@@ -75,7 +96,10 @@ def measure_profile(
     repeats: int = 1,
 ) -> Profile:
     """Run the pipeline end-to-end on sample caches and measure (cr, s, q)."""
-    pipe = CompressionPipeline(strategy, head_scores=head_scores)
+    device = (kv_samples[0].k.device if kv_samples
+              and isinstance(kv_samples[0], DeviceKVCache) else None)
+    pipe = CompressionPipeline(strategy, head_scores=head_scores,
+                               device=device)
     total_orig = 0
     total_comp = 0
     enc_time = 0.0
@@ -89,8 +113,8 @@ def measure_profile(
             dec_time += t_dec
         total_orig += kv.nbytes_wire()
         total_comp += comp.total_bytes()
-        sq_err += float(((restored.k - kv.k) ** 2).sum() + ((restored.v - kv.v) ** 2).sum())
-        n_elem += kv.k.size + kv.v.size
+        sq_err += _sq_err(restored, kv)
+        n_elem += int(np.prod(kv.k.shape)) + int(np.prod(kv.v.shape))
 
     reps = max(repeats * len(kv_samples), 1)
     v_bytes = total_orig * repeats  # uncompressed bytes pushed through

@@ -1,27 +1,30 @@
-"""Serving helpers around the model: the reference model, KV extraction and
-injection, the dense slot arena and the paged decode arena (DESIGN.md §9,
-§12), in PyTorch.
+"""The reference model, KV extraction and injection, the dense slot arena
+and the paged decode arena (DESIGN.md §9, §12), and the quality
+evaluation that scores a strategy by teacher-forced agreement, in
+PyTorch.
 
-The counterpart of the serving half of the JAX package's
-``core/quality.py``.  Caches and pools are updated in place (the JAX
-package returns new arrays); the step functions are plain closures where
-the JAX package jits.  The quality evaluation and the reference model's
-training are not ported yet: :func:`get_reference_model` loads the cached
-weights and raises when they are missing.
+The counterpart of the JAX package's ``core/quality.py``.  Caches and
+pools are updated in place (the JAX package returns new arrays); the step
+functions are plain closures where the JAX package jits.  The quality
+functions run on the device of the reference parameters, and their
+compressed-KV decode goes through the pipeline's device stages.  The
+reference model's training is not ported yet: :func:`get_reference_model`
+loads the cached weights and raises when they are missing.
 """
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.kvcache import KVCache
-from repro_torch.core.pipeline import DeviceKVCache
-from repro_torch.data.synthetic import make_prompt
+from repro_torch.core.pipeline import CompressionPipeline, DeviceKVCache
+from repro_torch.core.strategy import StrategyConfig, is_identity
+from repro_torch.data.synthetic import WORKLOADS, make_prompt
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.layers import PagedKV
 
@@ -403,3 +406,111 @@ def _prompts_for(workload: str, n: int, seq: int, seed: int
         rows.append(ids)
         answers.append(ans)
     return np.stack(rows), answers
+
+
+def _param_device(params) -> torch.device:
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
+def _greedy_decode(dec_fn, params, caches, first_tokens: torch.Tensor,
+                   start_pos: int, steps: int) -> np.ndarray:
+    """Greedy continuation of ``first_tokens`` (B, 1) int32 on the device
+    for ``steps`` tokens: (B, steps+1) on the host."""
+    toks = first_tokens
+    out = [toks[:, 0].cpu().numpy()]
+    pos = torch.full((toks.shape[0],), start_pos, dtype=torch.int32,
+                     device=toks.device)
+    for t in range(steps):
+        logits, caches = dec_fn(params, caches, toks, pos + t)
+        toks = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(
+            torch.int32)
+        # lint: sync-ok(offline reference decode for agreement scoring)
+        out.append(toks[:, 0].cpu().numpy())
+    return np.stack(out, axis=1)  # (B, steps+1)
+
+
+def _teacher_forced_agreement(dec_fn, params, caches, ref_tokens: np.ndarray,
+                              start_pos: int) -> float:
+    """Relative accuracy without divergence compounding: feed the reference
+    continuation, compare each step's argmax against the reference's next
+    token (the paper's relative-accuracy analogue)."""
+    b, t1 = ref_tokens.shape
+    dev = _device_of(caches)
+    ref = torch.as_tensor(ref_tokens, dtype=torch.int32, device=dev)
+    pos = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
+    hits, total = 0, 0
+    for t in range(t1 - 1):
+        logits, caches = dec_fn(params, caches, ref[:, t:t + 1], pos + t)
+        # lint: sync-ok(offline reference decode for agreement scoring)
+        pred = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        hits += int((pred == ref_tokens[:, t + 1]).sum())
+        total += b
+    return hits / max(total, 1)
+
+
+def evaluate_quality(
+    strategy: StrategyConfig,
+    workloads: Sequence[str] = tuple(WORKLOADS),
+    n_prompts: int = 6,
+    seq: int = 192,
+    decode_tokens: int = 20,
+    seed: int = 0,
+    ref=None,
+    head_scores: Optional[np.ndarray] = None,
+    device="cuda",
+) -> Dict[str, float]:
+    """Per-workload relative accuracy of ``strategy`` on the reference
+    model ``ref`` (the cached ``tiny-lm`` on ``device`` when None)."""
+    if is_identity(strategy):
+        return {w: 1.0 for w in workloads}
+    cfg, params = ref if ref is not None else get_reference_model(
+        device=device)
+    dev = _param_device(params)
+    gen_budget = decode_tokens + 2
+    pre, dec, _ = _jitted_steps(cfg.name, seq, n_prompts, seq + gen_budget)
+    pipe = CompressionPipeline(strategy, head_scores=head_scores, device=dev)
+
+    out: Dict[str, float] = {}
+    for wi, w in enumerate(workloads):
+        tokens, _ = _prompts_for(w, n_prompts, seq, seed * 7919 + wi)
+        logits, caches = pre(params, {"tokens": torch.as_tensor(
+            tokens, dtype=torch.int32, device=dev)})
+        first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(
+            torch.int32)
+
+        # reference decode (uncompressed KV); it writes only positions
+        # >= seq, which the teacher-forced decode rewrites before reading
+        ref_toks = _greedy_decode(dec, params, caches, first, seq,
+                                  decode_tokens)
+
+        # compressed-KV decode, teacher-forced on the reference tokens
+        for b in range(n_prompts):
+            kv = extract_kv(cfg, caches, b, upto=seq)
+            inject_kv(cfg, caches, b, pipe.decompress(pipe.compress(kv)))
+        out[w] = _teacher_forced_agreement(dec, params, caches, ref_toks,
+                                           seq)
+    return out
+
+
+def calibrate_head_scores(workload: str = "mixed", n_prompts: int = 4,
+                          seq: int = 192, seed: int = 0, ref=None,
+                          device="cuda") -> np.ndarray:
+    """Data-driven retrieval-head scores (L, H) from real model KV, taken
+    on the device of ``ref``'s parameters."""
+    cfg, params = ref if ref is not None else get_reference_model(
+        device=device)
+    dev = _param_device(params)
+    pre, _, _ = _jitted_steps(cfg.name, seq, n_prompts, seq + 4)
+    ws = list(WORKLOADS) if workload == "mixed" else [workload]
+    scores = []
+    for wi, w in enumerate(ws):
+        tokens, _ = _prompts_for(w, n_prompts, seq, seed + wi)
+        _, caches = pre(params, {"tokens": torch.as_tensor(
+            tokens, dtype=torch.int32, device=dev)})
+        for b in range(min(n_prompts, 2)):
+            k = extract_kv(cfg, caches, b, upto=seq).k.float()
+            centered = k - k.mean(dim=2, keepdim=True)
+            scores.append(torch.sqrt((centered ** 2).mean(dim=(2, 3))))
+    return torch.stack(scores).mean(dim=0).cpu().numpy()

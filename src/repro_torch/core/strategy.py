@@ -113,26 +113,33 @@ def is_identity(cfg: StrategyConfig) -> bool:
     return cfg.key_bits >= 16 and cfg.value_bits >= 16 and cfg.codec == "none"
 
 
-def paged_eligible(cfg: StrategyConfig,
-                   head_dim: Optional[int] = None) -> bool:
-    """True when a strategy's compressed form can live directly in the
-    paged arena's quantized page pool (DESIGN.md §12): plain symmetric
-    per-token uniform quantization, no transform, no entropy codec, and
-    equal 4- or 8-bit K/V — exactly the layout the fused dequant decode
-    path consumes.  Everything else falls back to the materialized
-    fp16-page injection path.  ``head_dim`` (when known) additionally
+def device_quantizable(cfg: StrategyConfig,
+                       head_dim: Optional[int] = None) -> bool:
+    """True when the device ``quant_pack`` kernel produces the strategy's
+    quantized form: plain symmetric per-token uniform quantization with
+    equal 4- or 8-bit K/V.  ``head_dim`` (when known: the channel width
+    the quantizer sees, after any transform's padding) additionally
     requires the quant group to tile the channel axis."""
     return (
         cfg.quantizer == "uniform"
         and cfg.granularity == "per_token"
         and cfg.symmetric
-        and cfg.transform == "none"
-        and cfg.codec == "none"
         and cfg.key_bits == cfg.value_bits
         and cfg.key_bits in (4, 8)
         and not is_identity(cfg)
         and (head_dim is None or head_dim % cfg.group_size == 0)
     )
+
+
+def paged_eligible(cfg: StrategyConfig,
+                   head_dim: Optional[int] = None) -> bool:
+    """True when a strategy's compressed form can live directly in the
+    paged arena's quantized page pool (DESIGN.md §12): device-quantizable,
+    with no transform and no entropy codec — exactly the layout the fused
+    dequant decode path consumes.  Everything else falls back to the
+    materialized fp16-page injection path."""
+    return (device_quantizable(cfg, head_dim)
+            and cfg.transform == "none" and cfg.codec == "none")
 
 
 # ---------------------------------------------------------------------------

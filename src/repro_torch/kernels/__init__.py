@@ -12,12 +12,15 @@
   paged_verify_attention_arena
                          the verify step's read of the arena's committed
                          prefix for W * Gq rows, returning (out, m, l)
+  hadamard               x @ H_D with f32 accumulation, the pipeline's
+                         Hadamard transform stage (compress and decompress)
 
 Each kernel: CUDA C++ in ``csrc/`` built by ``build.py``, a wrapper in
 ``ops.py`` with a launch counter, and a plain PyTorch version in ``ref.py``.
 """
 from repro_torch.kernels.ops import (
     dequant_unpack_op,
+    hadamard_op,
     launches,
     paged_attention_arena_op,
     paged_attention_op,
@@ -27,7 +30,7 @@ from repro_torch.kernels.ops import (
     reset_launches,
 )
 
-__all__ = ["dequant_unpack_op", "paged_attention_arena_op",
+__all__ = ["dequant_unpack_op", "hadamard_op", "paged_attention_arena_op",
            "paged_attention_op", "paged_verify_attention_arena_op",
            "paged_verify_attention_op", "quant_pack_op", "launches",
            "reset_launches"]

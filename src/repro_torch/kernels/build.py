@@ -48,6 +48,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "paged_verify_attention_arena": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          _I, _I, _F, _P)},
+    "hadamard": {
+        "hadamard": (_P, _I, _P, _P, _I, _I, _I, _P)},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -319,9 +319,35 @@ def paged_verify_attention_arena_op(
     return out, m, l
 
 
+def hadamard_op(x: torch.Tensor, out_dtype: Optional[torch.dtype] = None,
+                interpret: Optional[bool] = None) -> torch.Tensor:
+    """Blockwise Hadamard transform, the Pallas kernel's function:
+    x (T, D) bf16/f32 @ H_D with f32 accumulation, out ``out_dtype``
+    (f32 or bf16; default x's dtype).  D is a power of two (the kernel
+    takes 4 <= D <= 512); T is any length, with no block multiple."""
+    if x.dim() != 2 or x.shape[1] < 1 or x.shape[1] & (x.shape[1] - 1):
+        raise ValueError(f"hadamard: x{tuple(x.shape)}, D must be a power "
+                         f"of two")
+    out_dtype = out_dtype or x.dtype
+    if not _use_kernel(x, interpret):
+        return ref.hadamard_ref(x, out_dtype)
+    t, d = x.shape
+    if not 4 <= d <= 512 or out_dtype not in (torch.float32,
+                                              torch.bfloat16):
+        raise ValueError(f"hadamard: D={d} out_dtype={out_dtype}")
+    _check(x, "x", (torch.float32, torch.bfloat16), x.device)
+    h = ref.hadamard_table(d, x.device)
+    out = torch.empty((t, d), dtype=out_dtype, device=x.device)
+    _launch("hadamard", "hadamard", x.device, x.data_ptr(),
+            int(x.dtype == torch.bfloat16), h.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), t, d)
+    hadamard_op.launches += 1
+    return out
+
+
 KERNEL_OPS = (quant_pack_op, dequant_unpack_op, paged_attention_op,
               paged_attention_arena_op, paged_verify_attention_op,
-              paged_verify_attention_arena_op)
+              paged_verify_attention_arena_op, hadamard_op)
 for _op in KERNEL_OPS:
     _op.launches = 0
 

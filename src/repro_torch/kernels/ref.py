@@ -8,9 +8,11 @@ CPU tensor; the tests hold them against the JAX package's oracles, and
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.core.transforms import hadamard_matrix
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +74,31 @@ def dequant_unpack_ref(codes: torch.Tensor, scale: torch.Tensor, bits: int,
     if bits == 4:
         codes = unpack_int4_ref(codes)
     return dequantize_ref(codes, scale, group, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Hadamard transform
+# ---------------------------------------------------------------------------
+_HADAMARD: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def hadamard_table(d: int, device) -> torch.Tensor:
+    """The host pipeline's f32 (d, d) Hadamard table
+    (``transforms.hadamard_matrix``) on ``device``, cached."""
+    key = (d, str(device))
+    h = _HADAMARD.get(key)
+    if h is None:
+        h = torch.from_numpy(hadamard_matrix(d)).to(device)
+        _HADAMARD[key] = h
+    return h
+
+
+def hadamard_ref(x: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of ops.hadamard_op: x (T, D) @ H_D in f32, cast to
+    ``out_dtype`` (default x's dtype)."""
+    h = hadamard_table(x.shape[-1], x.device)
+    return (x.float() @ h).to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,13 @@ import torch
 from repro_torch.controller import Decision, ServiceAwareController, ServiceContext
 from repro_torch.core import codecs
 from repro_torch.core.kvcache import PageTable
-from repro_torch.core.pipeline import CompressedKV, CompressionPipeline
+from repro_torch.core.pipeline import (
+    CompressedKV,
+    CompressionPipeline,
+    DeviceKVCache,
+    _clock,
+    _sync,
+)
 from repro_torch.core.profiles import Profile
 from repro_torch.core.quality import (
     _jitted_steps,
@@ -63,36 +69,32 @@ def _select_profile(controller: Optional[ServiceAwareController],
     return IDENTITY_PROFILE, None
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 # ---------------------------------------------------------------------------
 # Shared PD codec stages
 # ---------------------------------------------------------------------------
 def compress_kvs(strategy: StrategyConfig, kvs: Sequence[Any]
                  ) -> Tuple[List[Any], int, float]:
-    """Compress each KV prefix for the wire.  Returns
+    """Compress each KV prefix for the wire (device KV through the
+    pipeline's device stages; the clock waits for its device).  Returns
     ``(payloads, wire_bytes, measured_seconds)``."""
     pipe = CompressionPipeline(strategy)
-    t0 = time.perf_counter()
+    devices = {kv.k.device for kv in kvs if isinstance(kv, DeviceKVCache)}
+    t0 = _clock(devices)
     comps = [pipe.compress(kv) for kv in kvs]
-    t_wall = time.perf_counter() - t0
+    t_wall = _clock(devices) - t0
     return comps, sum(c.total_bytes() for c in comps), t_wall
 
 
 def decompress_kvs(comps: Sequence[CompressedKV], device=None
                    ) -> Tuple[List[Any], float]:
-    """Restore wire payloads to KV (paged-eligible payloads on ``device``
-    through ``dequant_unpack`` when one is given).  Returns ``(kvs,
-    measured_seconds)``."""
-    t0 = time.perf_counter()
+    """Restore wire payloads to KV (paged-eligible and Hadamard payloads
+    on ``device``, through ``dequant_unpack`` and ``hadamard``, when one
+    is given).  Returns ``(kvs, measured_seconds)``."""
+    devices = [] if device is None else [device]
+    t0 = _clock(devices)
     kvs = [CompressionPipeline(c.strategy, device=device).decompress(c)
            for c in comps]
-    if device is not None:
-        _sync(torch.device(device))
-    t_wall = time.perf_counter() - t0
+    t_wall = _clock(devices) - t0
     return kvs, t_wall
 
 

@@ -9,7 +9,10 @@ The file imports no JAX, so it runs on a machine with only PyTorch:
 Tolerances: quant_pack and dequant_unpack bit for bit; the Pallas-
 interface paged (verify) attention within atol 2e-5 / rtol 1e-4 (f32 sums
 in another order); the arena entries' m and l within rtol 1e-5 and their
-bf16 output within 2 bf16 ulps.
+bf16 output within 2 bf16 ulps; hadamard within 1e-5 of each row's L2
+norm against its plain version (cuBLAS sums in another order) and bit for
+bit against numpy's ``x @ h`` on the host (one in-order FMA chain per
+output, a BLAS micro-kernel's order).
 """
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (  # noqa: E402
     dequant_unpack_op,
+    hadamard_op,
     launches,
     paged_attention_arena_op,
     paged_attention_op,
@@ -274,3 +278,63 @@ def test_speculative_runtime_launches_the_verify_kernel(cuda):
     for dw in rt.decode_workers:
         dw.page_table.check()
         assert dw.page_table.free_pages == dw.page_table.num_pages - 1
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t", [1, 77, 4096])
+def test_hadamard(cuda, d, t):
+    from repro_torch.core.transforms import hadamard_matrix
+
+    gen = torch.Generator(device=cuda).manual_seed(t + d)
+    x = torch.randn(t, d, generator=gen, device=cuda) * 3
+    x[:, 3] *= 40                                  # an outlier channel
+    h = hadamard_matrix(d)
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        before = hadamard_op.launches
+        got = hadamard_op(xd, out_dtype=torch.float32)
+        assert hadamard_op.launches == before + 1
+        norm = xd.float().norm(dim=1, keepdim=True)
+        want = R.hadamard_ref(xd, torch.float32)
+        assert bool(((got - want).abs() <= 1e-5 * norm).all())
+        # numpy takes a vector routine, which sums in another order, for
+        # a single row: hold that row against its product as a matrix
+        xh = xd.float().cpu().numpy()
+        host = (np.concatenate([xh, xh]) @ h)[:t] if t == 1 else xh @ h
+        np.testing.assert_array_equal(got.cpu().numpy(), host)
+        # out_dtype defaults to x's: bf16 out is the f32 result rounded
+        assert torch.equal(hadamard_op(xd), got.to(dt))
+        # H is symmetric and orthonormal: the transform is an involution
+        back = hadamard_op(got)
+        assert bool(((back - xd.float()).abs() <= 1e-5 * norm).all())
+
+
+def test_device_hadamard_stage_keeps_the_host_wire_bytes(cuda):
+    """A Hadamard + int8 per-token strategy compresses device KV through
+    hadamard and quant_pack, to the host path's bytes, and decompresses
+    through dequant_unpack and hadamard on the card."""
+    from repro_torch.core.pipeline import CompressionPipeline, DeviceKVCache
+    from repro_torch.core.strategy import StrategyConfig
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k, v = (torch.randn(4, 2, 77, 128, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    kv = DeviceKVCache(k, v)
+    cfg = StrategyConfig(transform="hadamard", quantizer="uniform",
+                         key_bits=8, value_bits=8, granularity="per_token",
+                         symmetric=True, group_size=64)
+    reset_launches()
+    got = CompressionPipeline(cfg).compress(kv)
+    want = CompressionPipeline(cfg).compress(kv.to_host())
+    assert launches()["hadamard_op"] == 2 and launches()["quant_pack_op"] == 2
+    assert got.total_bytes() == want.total_bytes()
+    for gb, wb in zip(got.k_buckets + got.v_buckets,
+                      want.k_buckets + want.v_buckets):
+        assert gb.payload == wb.payload
+        np.testing.assert_array_equal(gb.scale, wb.scale)
+    restored = CompressionPipeline(cfg, device=cuda).decompress(got)
+    host = CompressionPipeline(cfg).decompress(want)
+    assert launches()["dequant_unpack_op"] == 2
+    assert launches()["hadamard_op"] == 4
+    np.testing.assert_array_equal(restored.k.cpu().numpy(), host.k)
+    np.testing.assert_array_equal(restored.v.cpu().numpy(), host.v)
