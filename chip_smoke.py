@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Five phases, in order; any failure exits non-zero and no phase's error
 is caught:
@@ -13,6 +13,15 @@ is caught:
    scratch-page cases; the Hadamard kernel also bit for bit against
    numpy's ``x @ h`` on the host), and time it, its plain version and,
    where one PyTorch call computes the same function, that call.
+   ``decode_attention``, which no serving path calls, is driven here
+   through its public entry: llama3.1-8b's slot-arena decode at full
+   width, the harness and test shapes, 32,768 positions, Gq 48, and the
+   identity with paged attention over a block table.  The attention
+   kernels are also held at shapes they refused before their score rows
+   left shared memory (16,400 positions, W = 5 over 4,096, Gq 48, 35
+   verify rows).  With ``--baseline DIR`` (a checkout of another commit,
+   e.g. the parent's ``git archive``), the arena attention entries of DIR
+   and of this tree are timed at the main shapes in turns.
 3. Runtime: serve the pinned 8-request pattern PD-separated on the paged
    arena of ``llama3.1-8b`` at full width with seeded random bf16
    weights, count each kernel's launches on that run, and check the
@@ -532,6 +541,282 @@ def hadamard_kernel_phase(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: decode_attention, dense quantized flash-decode
+# ---------------------------------------------------------------------------
+SLOT_LENS = (SEQ + DECODE_TOKENS + 2, 1040, 600, 17, 1, 1031)
+
+
+def bf16_close(torch, got, want, atol: float = 2e-5):
+    """(bf16 ulps over the elements that differ by more than ``atol``,
+    ulps over all): bf16 outputs below 2.6e-3 have a last place finer than
+    the f32 sums' order sets, so there the f32 atol holds."""
+    def ordered(x):
+        i = x.float().view(torch.int32) >> 16
+        return torch.where(i < 0, -(i & 0x7FFF), i).long()
+    ulps = (ordered(got) - ordered(want)).abs()
+    far = ulps[(got.float() - want.float()).abs() > atol]
+    return (int(far.max()) if far.numel() else 0), int(ulps.max())
+
+
+def decode_attention_kernel_phase(torch, dev):
+    """decode_attention through its public entry, against its plain
+    version: (a) the slot-arena decode of llama3.1-8b at full width, B = 6
+    slots of S = SEQ + DECODE_TOKENS + 2 with ragged lengths, int8 and
+    int4, f32 and bf16 q; (b) benchmarks/kernel_throughput.py's shape;
+    (c) tests/test_kernels.py's three shapes at a static length; (d) a
+    32,768-position context; (e) Gq 48 over one KV head; (f) paged
+    attention over a block table against decode_attention over the
+    gathered view.  Tolerances: f32 q atol 2e-5 + rtol 1e-4; bf16 q 1 bf16
+    ulp (atol 2e-5 below 2.6e-3, see ``bf16_close``).  The launch counts
+    are set to 0 before the cases and read after them.  Returns (results
+    entry, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref, reset_launches
+
+    cfg = get_config(ARCH)
+    hkv, d = cfg.kv_heads, cfg.resolved_head_dim
+    gq = cfg.num_heads // cfg.kv_heads
+    gen = torch.Generator(device=dev).manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def case(b, h, g, s, dd, bits, group, q_dtype):
+        q = torch.randn(b, h, g, dd, generator=gen, device=dev).to(q_dtype)
+        kv = []
+        for _ in range(2):
+            kv += list(ref.quant_pack_ref(torch.randn(
+                b, h, s, dd, generator=gen, device=dev), bits, group))
+        return [q] + kv
+
+    def plain(args, bits, group, kv_len):
+        q, kc, ks, vc, vs = args
+        if bits == 4:
+            kc, vc = ref.unpack_int4_ref(kc), ref.unpack_int4_ref(vc)
+        return ref.decode_attention_ref(q, kc, ks, vc, vs, group, kv_len)
+
+    worst = 0.0
+
+    def hold(label, got, want):
+        nonlocal worst
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        if got.dtype == f32:
+            ok = bool(torch.allclose(got, want, atol=2e-5, rtol=1e-4))
+            line = "tolerance atol 2e-5 + rtol 1e-4"
+        else:
+            far, ulps = bf16_close(torch, got, want)
+            ok = far <= 1
+            line = (f"{ulps} bf16 ulps, {far} beyond atol 2e-5; tolerance 1 "
+                    f"ulp")
+        print(f"decode_attention {label}: max|err| {err:.3g} ({line})")
+        check(ok, f"decode_attention {label}")
+
+    s_main = SLOT_LENS[0]
+    slot_lens = torch.tensor(SLOT_LENS, dtype=torch.int32, device=dev)
+    cases = [  # label, (B, Hkv, Gq, S, D), bits, group, block_s, kv_len, q
+        *[(f"(a) llama3.1-8b slots int{bits} {str(dt)[6:]} q",
+           (SLOTS, hkv, gq, s_main, d), bits, GROUP, 32, slot_lens, dt)
+          for bits in (8, 4) for dt in (f32, bf16)],
+        ("(b) kernel_throughput shape", (2, 2, 4, 1024, 128), 8, 64, 256,
+         None, f32),
+        *[(f"(c) test shape {shape} int{bits}", shape, bits, g, blk,
+           shape[3] - shape[3] // 4, f32) for bits in (4, 8)
+          for shape, g, blk in [((2, 2, 4, 512, 64), 64, 128),
+                                ((1, 4, 8, 256, 128), 32, 256),
+                                ((3, 1, 2, 1024, 128), 128, 256)]],
+        ("(d) 32,768 positions int4", (1, hkv, gq, 32768, d), 4, GROUP, 256,
+         32000, f32),
+        *[(f"(e) Gq 48 {str(dt)[6:]} q", (1, 1, 48, 2048, d), 8, GROUP, 256,
+           None, dt) for dt in (f32, bf16)],
+    ]
+    reset_launches()
+    for label, shape, bits, group, blk, kv_len, dt in cases:
+        args = case(*shape, bits, group, dt)
+        got = ops.decode_attention_op(*args, bits=bits, group=group,
+                                      kv_len=kv_len, block_s=blk)
+        hold(label, got, plain(args, bits, group, kv_len))
+        if label.startswith("(a)") and bits == 8 and dt == f32:
+            rows = all(torch.equal(ops.decode_attention_op(
+                *[t[i:i + 1] for t in args], bits=bits, group=group,
+                kv_len=n, block_s=blk)[0], got[i])
+                for i, n in enumerate(SLOT_LENS))
+            print(f"decode_attention (a): each slot alone at its length "
+                  f"equals its row: {rows}")
+            check(rows, "decode_attention rows")
+
+    # (f) paged attention over a block table = dense over the gathered view
+    pps = s_main // PAGE_SIZE
+    n_pages = SLOTS * pps + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm.reshape(SLOTS, pps).to(torch.int32)
+    q = torch.randn(SLOTS, hkv, gq, d, generator=gen, device=dev)
+    for bits in (8, 4):
+        pools = []
+        for _ in range(2):
+            pools += list(ref.quant_pack_ref(torch.randn(
+                n_pages, hkv, PAGE_SIZE, d, generator=gen, device=dev), bits,
+                GROUP))
+        paged = ops.paged_attention_op(q, *pools, bt, slot_lens, bits=bits,
+                                       group=GROUP)
+        dense = [ref._gather_pages(p, bt).contiguous() for p in pools]
+        got = ops.decode_attention_op(q, *dense, bits=bits, group=GROUP,
+                                      kv_len=slot_lens, block_s=32)
+        hold(f"(f) int{bits} = paged_attention over the block table", got,
+             paged)
+    launches = ops.decode_attention_op.launches
+
+    # timed at (a)'s shape, int8, f32 q, every position visible
+    q, kc, ks, vc, vs = case(SLOTS, hkv, gq, s_main, d, 8, GROUP, f32)
+    kd = ref.dequantize_ref(kc, ks, GROUP, bf16)
+    vd = ref.dequantize_ref(vc, vs, GROUP, bf16)
+    qs = q.to(bf16).reshape(SLOTS, hkv * gq, 1, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = sum(t.numel() * t.element_size() for t in (q, kc, ks, vc, vs))
+    nbytes += q.numel() * 4                                   # the output
+    entry = dict(
+        max_abs_err=worst,
+        ms=time_ms(torch, lambda: ops.decode_attention_op(
+            q, kc, ks, vc, vs, bits=8, group=GROUP, block_s=32)),
+        plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(
+            q, kc, ks, vc, vs, GROUP)),
+        library_ms=time_ms(torch, lambda: sdpa(qs, kd, vd, enable_gqa=True)))
+    entry["bound_ms"], entry["bound_by"] = bound(
+        nbytes, 4 * SLOTS * hkv * gq * d * s_main)
+    return entry, launches
+
+
+def repaired_shapes_phase(torch, dev):
+    """The shapes the attention kernels refused before their score rows
+    left shared memory and their query rows went to tiles, against their
+    plain versions at the main path's tolerances (one layer each): the
+    arena decode of llama3.1-8b over 16,400 positions, a W = 5 verify over
+    4,096, the Pallas paged_attention at Gq 48 over one KV head, and the
+    verify arena at qwen2.5-7b's Hkv 4, Gq 7, W = 5 (35 rows)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d, b = 128, SLOTS
+
+    def arena(hkv, pps, lens, qlens):
+        shape = (b * pps + 1, PAGE_SIZE, hkv, d)
+        fp = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2)]
+        codes = [torch.randint(-128, 128, shape, generator=gen, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(shape, generator=gen, device=dev) * 0.02 + 1e-3
+                  for _ in range(2)]
+        perm = torch.randperm(b * pps, generator=gen, device=dev) + 1
+        return (fp[0], fp[1], codes[0], scales[0], codes[1], scales[1],
+                perm.reshape(b, pps).to(torch.int32),
+                torch.tensor(lens, dtype=torch.int32, device=dev),
+                torch.tensor(qlens, dtype=torch.int32, device=dev))
+
+    def hold_arena(label, got, want):
+        (out, m, l), (r_out, r_m, r_l) = got, want
+        ulps = bf16_ulps(torch, out, r_out)
+        m_rel = float(((m - r_m).abs() / r_m.abs().clamp_min(1e-30)).max())
+        l_rel = float(((l - r_l).abs() / r_l.abs().clamp_min(1e-30)).max())
+        print(f"{label}: out {ulps} bf16 ulps (tolerance 2), m rel "
+              f"{m_rel:.3g}, l rel {l_rel:.3g} (tolerance 1e-5)")
+        check(ulps <= 2 and m_rel <= 1e-5 and l_rel <= 1e-5, label)
+
+    pools = arena(8, 1025, [16400, 16390, 9000, 1040, 17, 1],
+                  [16384, 0, 9000, 1024, 9, 0])
+    q = torch.randn(b, 8, 4, d, generator=gen, device=dev).to(torch.bfloat16)
+    hold_arena("paged_attention_arena, 16,400 positions (llama3.1-8b)",
+               ops.paged_attention_arena_op(q, *pools),
+               ref.paged_attention_arena_ref(q, *pools))
+    del pools
+    for hkv, gq, pps, label in ((8, 4, 256, "4,096 positions"),
+                                (4, 7, 67, "Hkv 4 Gq 7 (qwen2.5-7b), 35 rows")):
+        view = pps * PAGE_SIZE
+        pools = arena(hkv, pps, [view - 5, view // 2, 1030, 1, 17, 600],
+                      [SEQ, 0, SEQ, 0, 9, 0])
+        q = torch.randn(b, hkv, gq, 5, d, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        hold_arena(f"paged_verify_attention_arena W=5, {label}",
+                   ops.paged_verify_attention_arena_op(q, *pools),
+                   ref.paged_verify_attention_arena_ref(q, *pools))
+    pools = []
+    n_pages = 2 * 128 + 1
+    for _ in range(2):
+        pools += list(ref.quant_pack_ref(torch.randn(
+            n_pages, 1, PAGE_SIZE, d, generator=gen, device=dev), 8, GROUP))
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).reshape(
+        2, 128).to(torch.int32)
+    lens = torch.tensor([2048, 777], dtype=torch.int32, device=dev)
+    q = torch.randn(2, 1, 48, d, generator=gen, device=dev)
+    got = ops.paged_attention_op(q, *pools, bt, lens, bits=8, group=GROUP)
+    want = ref.paged_attention_ref(q, *pools, bt, lens, 8, GROUP)
+    err = float((got - want).abs().max())
+    print(f"paged_attention (Pallas interface) Gq 48 Hkv 1 (granite-20b): "
+          f"max|err| {err:.3g} (tolerance atol 2e-5 + rtol 1e-4)")
+    check(bool(torch.allclose(got, want, atol=2e-5, rtol=1e-4)),
+          "paged_attention Gq 48")
+
+
+def attention_main_times(torch, dev, ops):
+    """Times of the two arena attention entries at the main path's shapes
+    (one decode step's layer read, W = 1; verify at W = 2 and 5), from
+    ``ops``: the module of this tree or of another checkout."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hkv, gq, d = 8, 4, 128
+    times = {}
+    for w in (1, 2, SPEC_K + 1):
+        pps = -(-(SEQ + DECODE_TOKENS + 2 + (SPEC_K if w > 1 else 0))
+                // PAGE_SIZE)
+        shape = (SLOTS * pps + 1, PAGE_SIZE, hkv, d)
+        kp, vp = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        kc, vc = (torch.randint(-128, 128, shape, generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape, generator=gen, device=dev) * 0.02 + 1e-3
+                  for _ in range(2))
+        bt = (torch.randperm(SLOTS * pps, generator=gen, device=dev)
+              + 1).reshape(SLOTS, pps).to(torch.int32)
+        lens = torch.tensor([SEQ + 16, SEQ + 6, SEQ, pps * PAGE_SIZE - w,
+                             SEQ + 26, SEQ], dtype=torch.int32, device=dev)
+        qlens = torch.tensor([SEQ, 0, SEQ, 0, 0, SEQ], dtype=torch.int32,
+                             device=dev)
+        args = (kp, vp, kc, ks, vc, vs, bt, lens, qlens)
+        if w == 1:
+            q = torch.randn(SLOTS, hkv, gq, d, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            times["W=1"] = time_ms(
+                torch, lambda: ops.paged_attention_arena_op(q, *args))
+        else:
+            q = torch.randn(SLOTS, hkv, gq, w, d, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            times[f"W={w}"] = time_ms(
+                torch, lambda: ops.paged_verify_attention_arena_op(q, *args))
+    return times
+
+
+def compare_with(torch, baseline: Path):
+    """The arena attention entries at the main path's shapes, timed from
+    ``baseline`` (a checkout of another commit, e.g. ``git archive`` of
+    the parent) and from this tree, in turns (baseline, this, this,
+    baseline), each in a process of its own on this card."""
+    runs = []
+    for src in (baseline / "src", ROOT / "src", ROOT / "src",
+                baseline / "src"):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--attention-times", str(src)],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"timing {src}: {proc.stderr[-2000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for w in runs[0]:
+        base = [runs[0][w], runs[3][w]]
+        this = [runs[1][w], runs[2][w]]
+        print(f"arena attention {w} at the main shapes: this tree "
+              f"{this[0]:.4f} / {this[1]:.4f} ms, {baseline} "
+              f"{base[0]:.4f} / {base[1]:.4f} ms (ratio "
+              f"{sum(this) / sum(base):.4f})")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the serving runtime at full width
 # ---------------------------------------------------------------------------
 def model_setup(torch, dev):
@@ -1010,18 +1295,32 @@ def profiling_phase(torch, dev, cfg, params):
     return counts
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="a checkout of another commit whose arena attention "
+                         "kernels are timed beside this tree's, in turns")
+    ap.add_argument("--attention-times", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # one turn of --baseline
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    dev = torch.device("cuda", 0)
+    if args.attention_times is not None:
+        sys.path.insert(0, str(args.attention_times))
+        from repro_torch.kernels import ops
+        print(json.dumps(attention_main_times(torch, dev, ops)))
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.kernels import build
 
-    dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} on {name}")
 
@@ -1038,6 +1337,12 @@ def main() -> int:
     results = kernel_phase(torch, dev)
     results["paged_verify_attention"] = verify_kernel_phase(torch, dev)
     results["hadamard"], host_exact = hadamard_kernel_phase(torch, dev)
+    results["decode_attention"], decode_launches = \
+        decode_attention_kernel_phase(torch, dev)
+    print(f"launches on the decode_attention path (phase 2's cases): "
+          f"{decode_launches}")
+    check(decode_launches > 0, "decode_attention launched")
+    repaired_shapes_phase(torch, dev)
     torch.cuda.synchronize()
     for k, r in results.items():
         print(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -1047,6 +1352,9 @@ def main() -> int:
         print(f"paged_verify_attention_arena {wk}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, SDPA {r['library_ms']:.4f} ms)")
+
+    if args.baseline is not None:
+        compare_with(torch, args.baseline.resolve())
 
     # ---- 3. runtime ----
     cfg, params = model_setup(torch, dev)
@@ -1118,7 +1426,11 @@ def main() -> int:
             "src/repro/kernels/paged_verify_attention.py:149"),
         "hadamard": ("src/repro_torch/kernels/csrc/hadamard.cu",
                      "src/repro/kernels/hadamard.py:37"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:137"),
     }
+    launches["decode_attention"] = decode_launches
     kernels = []
     for k, (src, replaces) in meta.items():
         entry = {"name": k, "route": "cuda", "source": src,
@@ -1138,4 +1450,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

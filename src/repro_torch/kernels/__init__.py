@@ -2,6 +2,9 @@
 
   quant_pack             fused group-quantize + int4/int8 pack (prefill side)
   dequant_unpack         unpack + dequantize (decode side)
+  decode_attention       quantized flash-decode attention over a dense
+                         (B, Hkv, S, D) int8/int4 KV cache, the Pallas
+                         kernel's interface (no serving path calls it)
   paged_attention        block-table page gather + fused dequant decode
                          attention, the Pallas kernel's interface
   paged_attention_arena  the same kernel over the serving arena's per-layer
@@ -19,6 +22,7 @@ Each kernel: CUDA C++ in ``csrc/`` built by ``build.py``, a wrapper in
 ``ops.py`` with a launch counter, and a plain PyTorch version in ``ref.py``.
 """
 from repro_torch.kernels.ops import (
+    decode_attention_op,
     dequant_unpack_op,
     hadamard_op,
     launches,
@@ -30,7 +34,7 @@ from repro_torch.kernels.ops import (
     reset_launches,
 )
 
-__all__ = ["dequant_unpack_op", "hadamard_op", "paged_attention_arena_op",
-           "paged_attention_op", "paged_verify_attention_arena_op",
-           "paged_verify_attention_op", "quant_pack_op", "launches",
-           "reset_launches"]
+__all__ = ["decode_attention_op", "dequant_unpack_op", "hadamard_op",
+           "paged_attention_arena_op", "paged_attention_op",
+           "paged_verify_attention_arena_op", "paged_verify_attention_op",
+           "quant_pack_op", "launches", "reset_launches"]

@@ -36,18 +36,21 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "dequant_unpack": {
         "dequant_unpack": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
     "paged_attention": {
-        "paged_attention": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
+        "paged_attention": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "paged_attention_arena": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                  _P)},
+                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _P)},
     "paged_verify_attention": {
-        "paged_verify_attention": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
+        "paged_verify_attention": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                    _P),
         "paged_verify_attention_arena": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                         _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                         _I, _I, _F, _P)},
+                                         _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _I, _I, _F, _P)},
+    "decode_attention": {
+        "decode_attention": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _P)},
     "hadamard": {
         "hadamard": (_P, _I, _P, _P, _I, _I, _I, _P)},
 }

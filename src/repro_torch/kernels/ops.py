@@ -55,8 +55,35 @@ def _launch(lib: str, fn: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
 
 
-def _smem_bytes(gq: int, d: int, pps: int, ps: int) -> int:
-    return 4 * (gq * d + gq * pps * ps + 4) + 4 * pps
+# What the attention kernels still refuse, and why.  paged_attention's
+# score rows live in an f32 workspace in device memory, (B, Hkv, rows,
+# PPS*PS), allocated here through PyTorch's caching allocator;
+# paged_verify_attention's stay in shared memory where they fit (the
+# serving sizes) and take the workspace beyond; so a slot's view has no
+# length cap but device memory.  Query rows are taken in tiles on a second
+# grid axis (paged_attention: 16 per block; paged_verify_attention: 32, 16
+# at D = 512), so there is no row cap.  What remains:
+#   * the block table is copied into shared memory: PPS * 4 bytes plus the
+#     tile's q must fit a block's 232,448 bytes (about 56,000 pages, some
+#     900,000 positions at page size 16);
+#   * paged_verify_attention reads K four channels at a time and splits
+#     the channels over its 512 threads: D a multiple of 4 dividing 512;
+#   * decode_attention walks the positions in chunks and gives each lane
+#     four channels: D a multiple of 4, at most 512.
+_PAGED_TILE = 16
+
+
+def _smem_bytes(gq: int, d: int, pps: int) -> int:
+    return 4 * (min(gq, _PAGED_TILE) * d + 4) + 4 * pps
+
+
+def _check_paged_shape(name: str, gq: int, d: int, pps: int) -> None:
+    """Raise where paged_attention.cu cannot take the shape: only a block
+    table too long for shared memory."""
+    if gq < 1 or d < 1 or _smem_bytes(gq, d, pps) > _MAX_SMEM:
+        raise ValueError(f"{name}: Gq={gq} D={d} PPS={pps} (smem "
+                         f"{_smem_bytes(gq, d, pps)} bytes, at most "
+                         f"{_MAX_SMEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +140,65 @@ def dequant_unpack_op(codes: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+_DECODE_MAX_CHUNK = 256     # decode_attention.cu's kMaxChunk
+
+
+def decode_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
+                        k_scale: torch.Tensor, v_codes: torch.Tensor,
+                        v_scale: torch.Tensor, bits: int = 8, group: int = 64,
+                        kv_len=None, block_s: int = 256,
+                        interpret: Optional[bool] = None) -> torch.Tensor:
+    """Quantized flash-decode attention over a dense KV cache, the Pallas
+    kernel's interface: q (B, Hkv, Gq, D) f32/bf16; codes (B, Hkv, S, D)
+    int8 or (B, Hkv, S, D/2) uint8 nibbles; scales (B, Hkv, S, D/group)
+    f32.  ``kv_len``: None (= S), an int for every slot, or a (B,) int32
+    tensor of per-slot lengths (each >= 1).  ``block_s`` positions per
+    online-softmax step (the kernel takes at most 256 at a time); S must
+    be a multiple of ``min(block_s, S)``.  Returns (B, Hkv, Gq, D) in q's
+    dtype."""
+    if q.dim() != 4 or k_codes.dim() != 4:
+        raise ValueError(f"decode_attention: q{tuple(q.shape)} "
+                         f"k_codes{tuple(k_codes.shape)}")
+    b, hkv, gq, d = q.shape
+    s = k_codes.shape[2]
+    bs = min(block_s, s)
+    if bits not in (4, 8) or bs < 1 or s % bs or group < 1 or d % group:
+        raise ValueError(f"decode_attention: bits={bits} group={group} "
+                         f"D={d} S={s} block_s={block_s}")
+    cw = d if bits == 8 else d // 2
+    dev = q.device
+    _check(q, "q", (torch.float32, torch.bfloat16), dev)
+    for name, t in (("k_codes", k_codes), ("v_codes", v_codes)):
+        _check(t, name, (torch.int8,) if bits == 8 else (torch.uint8,), dev,
+               (b, hkv, s, cw))
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(t, name, (torch.float32,), dev, (b, hkv, s, d // group))
+    lens, static_len = None, s
+    if isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1:
+        _check(kv_len, "kv_len", (torch.int32,), dev, (b,))
+        lens = kv_len
+    elif kv_len is not None:
+        kv_len = static_len = int(kv_len)
+    if not _use_kernel(q, interpret):
+        if bits == 4:
+            k_codes, v_codes = (ref.unpack_int4_ref(k_codes),
+                                ref.unpack_int4_ref(v_codes))
+        return ref.decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
+                                        group, kv_len=kv_len)
+    if d % 4 or d > 512 or any(t.data_ptr() % 4 for t in (k_codes, v_codes)):
+        raise ValueError(f"decode_attention: D={d} (a multiple of 4, at most "
+                         f"512), codes 4-byte aligned")
+    out = torch.empty_like(q)
+    _launch("decode_attention", "decode_attention", dev, q.data_ptr(),
+            int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
+            k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
+            None if lens is None else lens.data_ptr(), static_len,
+            out.data_ptr(), b, hkv, gq, s, d, bits, group,
+            min(bs, _DECODE_MAX_CHUNK), 1.0 / math.sqrt(d))
+    decode_attention_op.launches += 1
+    return out
+
+
 def paged_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
                        k_scale: torch.Tensor, v_codes: torch.Tensor,
                        v_scale: torch.Tensor, block_tables: torch.Tensor,
@@ -139,16 +225,17 @@ def paged_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
         _check(t, name, (torch.float32,), dev, (p, hkv, ps, d // group))
     _check(block_tables, "block_tables", (torch.int32,), dev, (b, pps))
     _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
-    if bits not in (4, 8) or d % group or gq > 16 \
-            or _smem_bytes(gq, d, pps, ps) > _MAX_SMEM:
-        raise ValueError(f"paged_attention: bits={bits} group={group} "
-                         f"Gq={gq} D={d} PPS*PS={pps * ps}")
+    if bits not in (4, 8) or d % group:
+        raise ValueError(f"paged_attention: bits={bits} group={group} D={d}")
+    _check_paged_shape("paged_attention", gq, d, pps)
+    ws = torch.empty((b, hkv, gq, pps * ps), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     _launch("paged_attention", "paged_attention", dev, q.data_ptr(),
             int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
             k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            b, hkv, gq, d, pps, ps, bits, group, 1.0 / math.sqrt(d))
+            block_tables.data_ptr(), kv_lens.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), b, hkv, gq, d, pps, ps, bits, group,
+            1.0 / math.sqrt(d))
     paged_attention_op.launches += 1
     return out
 
@@ -187,9 +274,8 @@ def paged_attention_arena_op(
     _check(block_tables, "block_tables", (torch.int32,), dev, (b, pps))
     _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
     _check(quant_lens, "quant_lens", (torch.int32,), dev, (b,))
-    if gq > 16 or _smem_bytes(gq, d, pps, ps) > _MAX_SMEM:
-        raise ValueError(f"paged_attention_arena: Gq={gq} D={d} "
-                         f"PPS*PS={pps * ps}")
+    _check_paged_shape("paged_attention_arena", gq, d, pps)
+    ws = torch.empty((b, hkv, gq, pps * ps), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, gq), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gq), dtype=torch.float32, device=dev)
@@ -197,31 +283,44 @@ def paged_attention_arena_op(
             k_pool.data_ptr(), v_pool.data_ptr(), k_codes.data_ptr(),
             k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(),
-            quant_lens.data_ptr(), out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, hkv, gq, d, pps, ps, 1.0 / math.sqrt(d))
+            quant_lens.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, hkv, gq, d, pps, ps,
+            1.0 / math.sqrt(d))
     paged_attention_arena_op.launches += 1
     return out, m, l
 
 
-# The verify kernel: one block of 512 threads per (slot, KV head), at most
-# 32 query rows, at most 16 rows per (channel, thread group) in its pass 3.
-_VERIFY_THREADS, _VERIFY_MAX_ROWS, _VERIFY_ROWS_PER_THREAD = 512, 32, 16
+# The verify kernel: 512 threads per (slot, KV head, tile of rows).
+_VERIFY_THREADS = 512
 
 
-def _verify_smem_bytes(rows: int, d: int, pps: int, ps: int) -> int:
-    return 4 * (rows * d + rows * pps * ps + rows) + 4 * pps
+def _verify_smem_bytes(rows: int, d: int, pps: int,
+                       s_max_smem: int = 0) -> int:
+    """Shared memory of one verify block; ``s_max_smem`` positions of
+    scores kept there (0: the scores go to the device workspace)."""
+    tile = min(rows, 32, 16 * (_VERIFY_THREADS // d))
+    return 4 * tile * (d + 1 + s_max_smem) + 4 * pps
 
 
-def _check_verify_shape(name: str, rows: int, d: int, pps: int,
-                        ps: int) -> None:
-    groups = _VERIFY_THREADS // max(d, 1)
-    if (rows < 1 or rows > _VERIFY_MAX_ROWS or d < 4 or d % 4
-            or _VERIFY_THREADS % d
-            or -(-rows // groups) > _VERIFY_ROWS_PER_THREAD
-            or _verify_smem_bytes(rows, d, pps, ps) > _MAX_SMEM):
-        raise ValueError(f"{name}: W*Gq={rows} D={d} PPS*PS={pps * ps} "
-                         f"(smem {_verify_smem_bytes(rows, d, pps, ps)} "
-                         f"bytes, at most {_MAX_SMEM})")
+def _verify_workspace(b: int, hkv: int, rows: int, d: int, pps: int,
+                      ps: int, dev) -> Optional[torch.Tensor]:
+    """The scores' device workspace, or None where they fit in shared
+    memory (the kernel's faster form, which the serving sizes take)."""
+    if _verify_smem_bytes(rows, d, pps, pps * ps) <= _MAX_SMEM:
+        return None
+    return torch.empty((b, hkv, rows, pps * ps), dtype=torch.float32,
+                       device=dev)
+
+
+def _check_verify_shape(name: str, rows: int, d: int, pps: int) -> None:
+    """Raise where paged_verify_attention.cu cannot take the shape: D not
+    a multiple of 4 dividing 512, or a block table too long for shared
+    memory."""
+    if (rows < 1 or d < 4 or d % 4 or _VERIFY_THREADS % d
+            or _verify_smem_bytes(rows, d, pps) > _MAX_SMEM):
+        raise ValueError(f"{name}: W*Gq={rows} D={d} PPS={pps} (D a "
+                         f"multiple of 4 dividing {_VERIFY_THREADS}; smem "
+                         f"at most {_MAX_SMEM} bytes)")
 
 
 def paged_verify_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
@@ -257,13 +356,16 @@ def paged_verify_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
     if bits not in (4, 8) or d % group:
         raise ValueError(f"paged_verify_attention: bits={bits} "
                          f"group={group} D={d}")
-    _check_verify_shape("paged_verify_attention", w * gq, d, pps, ps)
+    _check_verify_shape("paged_verify_attention", w * gq, d, pps)
+    ws = _verify_workspace(b, hkv, w * gq, d, pps, ps, dev)
     out = torch.empty_like(q)
     _launch("paged_verify_attention", "paged_verify_attention", dev,
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
             k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            b, hkv, w, gq, d, pps, ps, bits, group, 1.0 / math.sqrt(d))
+            block_tables.data_ptr(), kv_lens.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            out.data_ptr(), b, hkv, w, gq, d, pps, ps, bits, group,
+            1.0 / math.sqrt(d))
     paged_verify_attention_op.launches += 1
     return out
 
@@ -305,7 +407,8 @@ def paged_verify_attention_arena_op(
     _check(block_tables, "block_tables", (torch.int32,), dev, (b, pps))
     _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
     _check(quant_lens, "quant_lens", (torch.int32,), dev, (b,))
-    _check_verify_shape("paged_verify_attention_arena", gq * w, d, pps, ps)
+    _check_verify_shape("paged_verify_attention_arena", gq * w, d, pps)
+    ws = _verify_workspace(b, hkv, gq * w, d, pps, ps, dev)
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
@@ -313,8 +416,9 @@ def paged_verify_attention_arena_op(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
             v_scale.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
-            quant_lens.data_ptr(), out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, hkv, gq, w, d, pps, ps, 1.0 / math.sqrt(d))
+            quant_lens.data_ptr(), None if ws is None else ws.data_ptr(),
+            out.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, gq, w, d,
+            pps, ps, 1.0 / math.sqrt(d))
     paged_verify_attention_arena_op.launches += 1
     return out, m, l
 
@@ -345,9 +449,10 @@ def hadamard_op(x: torch.Tensor, out_dtype: Optional[torch.dtype] = None,
     return out
 
 
-KERNEL_OPS = (quant_pack_op, dequant_unpack_op, paged_attention_op,
-              paged_attention_arena_op, paged_verify_attention_op,
-              paged_verify_attention_arena_op, hadamard_op)
+KERNEL_OPS = (quant_pack_op, dequant_unpack_op, decode_attention_op,
+              paged_attention_op, paged_attention_arena_op,
+              paged_verify_attention_op, paged_verify_attention_arena_op,
+              hadamard_op)
 for _op in KERNEL_OPS:
     _op.launches = 0
 

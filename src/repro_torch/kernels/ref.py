@@ -102,6 +102,36 @@ def hadamard_ref(x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Quantized flash-decode attention (dense KV)
+# ---------------------------------------------------------------------------
+def decode_attention_ref(
+    q: torch.Tensor,         # (B, Hkv, Gq, D) f32/bf16
+    k_codes: torch.Tensor,   # (B, Hkv, S, D) int8
+    k_scale: torch.Tensor,   # (B, Hkv, S, D/group) f32
+    v_codes: torch.Tensor,   # (B, Hkv, S, D) int8
+    v_scale: torch.Tensor,   # (B, Hkv, S, D/group) f32
+    group: int,
+    kv_len=None,             # None | int | (B,) per-slot valid lengths
+) -> torch.Tensor:
+    """Plain version of ops.decode_attention_op (on unpacked int8 codes):
+    dequantize in f32, take the f32 scores over sqrt(D), mask positions at
+    or beyond ``kv_len``, softmax, and the f32 sum of p * v, cast to q's
+    dtype.  A (B,) ``kv_len`` masks each batch row at its own length."""
+    d = q.shape[-1]
+    s = k_codes.shape[2]
+    k = dequantize_ref(k_codes, k_scale, group)        # (B, Hkv, S, D)
+    v = dequantize_ref(v_codes, v_scale, group)
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.float(), k) / math.sqrt(d)
+    if kv_len is not None:
+        lens = torch.atleast_1d(torch.as_tensor(kv_len, device=q.device))
+        mask = (torch.arange(s, device=q.device)[None, :]
+                < lens.long()[:, None])                 # (B|1, S)
+        scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgs,bhsd->bhgd", probs, v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Paged quantized decode attention, Pallas interface
 # ---------------------------------------------------------------------------
 def _gather_pages(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -123,20 +153,14 @@ def paged_attention_ref(
     group: int,
 ) -> torch.Tensor:
     """Plain version of ops.paged_attention_op: gather each slot's pages
-    into a contiguous view, dequantize in f32, and take masked softmax
-    attention of the one query per slot; normalized, in q's dtype."""
-    d = q.shape[-1]
-    k = dequant_unpack_ref(_gather_pages(k_codes, block_tables),
-                           _gather_pages(k_scale, block_tables), bits, group)
-    v = dequant_unpack_ref(_gather_pages(v_codes, block_tables),
-                           _gather_pages(v_scale, block_tables), bits, group)
-    s = k.shape[2]
-    scores = torch.einsum("bhgd,bhsd->bhgs", q.float(), k) / math.sqrt(d)
-    mask = (torch.arange(s, device=q.device)[None, :]
-            < kv_lens.to(q.device).long()[:, None])        # (B, S)
-    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhgs,bhsd->bhgd", probs, v).to(q.dtype)
+    into a contiguous view, unpack, and take the dense decode attention
+    (:func:`decode_attention_ref`) masked at each slot's length."""
+    kc, vc = (_gather_pages(c, block_tables) for c in (k_codes, v_codes))
+    if bits == 4:
+        kc, vc = unpack_int4_ref(kc), unpack_int4_ref(vc)
+    return decode_attention_ref(q, kc, _gather_pages(k_scale, block_tables),
+                                vc, _gather_pages(v_scale, block_tables),
+                                group, kv_len=kv_lens)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,13 @@ The file imports no JAX, so it runs on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Tolerances: quant_pack and dequant_unpack bit for bit; the Pallas-
-interface paged (verify) attention within atol 2e-5 / rtol 1e-4 (f32 sums
-in another order); the arena entries' m and l within rtol 1e-5 and their
-bf16 output within 2 bf16 ulps; hadamard within 1e-5 of each row's L2
+interface paged (verify) attention and decode_attention with f32 q within
+atol 2e-5 / rtol 1e-4 (f32 sums in another order; an online softmax for
+decode_attention), decode_attention with bf16 q within 1 bf16 ulp, or
+within the f32 atol 2e-5 where one bf16 ulp is finer than that (outputs
+below 2.6e-3 in magnitude, whose last bits the f32 sums' order sets); the
+arena entries' m and l within rtol 1e-5 and their bf16 output within 2
+bf16 ulps; hadamard within 1e-5 of each row's L2
 norm against its plain version (cuBLAS sums in another order) and bit for
 bit against numpy's ``x @ h`` on the host (one in-order FMA chain per
 output, a BLAS micro-kernel's order).
@@ -20,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (  # noqa: E402
+    decode_attention_op,
     dequant_unpack_op,
     hadamard_op,
     launches,
@@ -42,11 +47,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor, atol: float = 0.0) -> int:
+    """Largest distance in bf16 units in the last place, over the
+    elements that differ by more than ``atol``."""
     def ordered(x):
         i = x.float().view(torch.int32) >> 16
         return torch.where(i < 0, -(i & 0x7FFF), i).long()
-    return int((ordered(a) - ordered(b)).abs().max())
+    ulps = (ordered(a) - ordered(b)).abs()
+    ulps = ulps[(a.float() - b.float()).abs() > atol]
+    return int(ulps.max()) if ulps.numel() else 0
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -197,10 +206,160 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         quant_pack_op(x.to(torch.float16))
     args = list(_arena_case(cuda, 0, b=1, pps=4))
+    args[7] = torch.ones(1, 60_000, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                 # block table > smem
+        paged_attention_arena_op(*args)
     args[0] = torch.zeros(1, 8, 4, 9, 128, dtype=torch.bfloat16,
-                          device=cuda)                  # 36 rows > 32
+                          device=cuda)
     with pytest.raises(ValueError):
         paged_verify_attention_arena_op(*args)
+    q, kc, ks, vc, vs = _dense_case(cuda, 0, 1, 1, 4, 64, 128, 8, 64,
+                                    torch.float32)
+    with pytest.raises(ValueError):
+        decode_attention_op(q, kc, ks, vc, vs, bits=8, block_s=48)
+    with pytest.raises(ValueError):
+        decode_attention_op(q, kc, ks, vc, vs, bits=5)
+    with pytest.raises(TypeError):
+        decode_attention_op(q.half(), kc, ks, vc, vs)
+    with pytest.raises(ValueError):
+        decode_attention_op(q, kc[:, :, :32], ks, vc, vs)
+    with pytest.raises(ValueError):
+        decode_attention_op(q, kc, ks, vc, vs, kv_len=torch.ones(
+            2, dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# Shapes the attention kernels refused before their score rows moved to a
+# device workspace and their query rows to tiles
+# ---------------------------------------------------------------------------
+def test_paged_attention_arena_long_view(cuda):
+    """llama3.1-8b arena decode over 16,400 positions (a 16k prompt)."""
+    args = list(_arena_case(cuda, 3, pps=1025))
+    args[8] = torch.tensor([16_400, 16_390, 9000, 1040, 17, 1],
+                           dtype=torch.int32, device=cuda)
+    args[9] = torch.tensor([16_384, 0, 9000, 1024, 9, 0],
+                           dtype=torch.int32, device=cuda)
+    out, m, l = paged_attention_arena_op(*args)
+    r_out, r_m, r_l = R.paged_attention_arena_ref(*args)
+    torch.testing.assert_close(m, r_m, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    assert _bf16_ulps(out, r_out) <= 2
+
+
+@pytest.mark.parametrize("hkv,gq,w,pps", [(8, 4, 5, 256), (4, 7, 5, 67)])
+def test_paged_verify_attention_arena_wide(cuda, hkv, gq, w, pps):
+    """W = 5 verify over 4,096 positions; qwen2.5-7b's W * Gq = 35 rows."""
+    args = list(_arena_case(cuda, 4, hkv=hkv, gq=gq, pps=pps))
+    view = pps * 16
+    args[8] = torch.tensor([view - w, view // 2, 1030, 1, 17, 600],
+                           dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    args[0] = torch.randn(6, hkv, gq, w, 128, generator=gen,
+                          device=cuda).to(torch.bfloat16)
+    out, m, l = paged_verify_attention_arena_op(*args)
+    r_out, r_m, r_l = R.paged_verify_attention_arena_ref(*args)
+    torch.testing.assert_close(m, r_m, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    assert _bf16_ulps(out, r_out) <= 2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_paged_attention_many_query_rows(cuda, bits):
+    """granite-20b's Gq 48 over one KV head, and W * Gq = 35 verify rows
+    through the Pallas interfaces."""
+    gen = torch.Generator(device=cuda).manual_seed(6 + bits)
+    pools, bt = _pallas_pools(gen, cuda, 2, 1, 2048, 128, bits, 64, 16)
+    lens = torch.tensor([2048, 777], dtype=torch.int32, device=cuda)
+    q = torch.randn(2, 1, 48, 128, generator=gen, device=cuda)
+    got = paged_attention_op(q, *pools, bt, lens, bits=bits, group=64)
+    want = R.paged_attention_ref(q, *pools, bt, lens, bits, 64)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    qv = torch.randn(2, 1, 5, 7, 128, generator=gen, device=cuda)
+    lens = lens - 5
+    got = paged_verify_attention_op(qv, *pools, bt, lens, bits=bits,
+                                    group=64)
+    want = R.paged_verify_attention_ref(qv, *pools, bt, lens, bits, 64)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention: dense quantized flash-decode
+# ---------------------------------------------------------------------------
+def _dense_case(dev, seed, b, hkv, gq, s, d, bits, group, q_dtype):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hkv, gq, d, generator=gen, device=dev).to(q_dtype)
+    kc, ks = R.quant_pack_ref(torch.randn(b, hkv, s, d, generator=gen,
+                                          device=dev), bits, group)
+    vc, vs = R.quant_pack_ref(torch.randn(b, hkv, s, d, generator=gen,
+                                          device=dev), bits, group)
+    return q, kc, ks, vc, vs
+
+
+def _decode_want(q, kc, ks, vc, vs, bits, group, kv_len):
+    if bits == 4:
+        kc, vc = R.unpack_int4_ref(kc), R.unpack_int4_ref(vc)
+    return R.decode_attention_ref(q, kc, ks, vc, vs, group, kv_len=kv_len)
+
+
+def _hold(got, want):
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    else:
+        assert _bf16_ulps(got, want, atol=2e-5) <= 1
+
+
+_SLOT_LENS = (1056, 1040, 600, 17, 1, 1031)   # chip_smoke.py's case (a)
+
+
+@pytest.mark.parametrize("case", [
+    # (b, hkv, gq, s, d, bits, group, block_s, kv_len, q dtype)
+    *[(6, 8, 4, 1056, 128, bits, 64, 32, "slots", dt)
+      for bits in (8, 4) for dt in ("f32", "bf16")],   # slot-arena decode
+    (2, 2, 4, 1024, 128, 8, 64, 256, None, "f32"),     # kernel_throughput
+    *[(b, hkv, gq, s, d, bits, g, blk, s - s // 4, "f32")
+      for bits in (4, 8)
+      for b, hkv, gq, d, s, g, blk in [(2, 2, 4, 64, 512, 64, 128),
+                                       (1, 4, 8, 128, 256, 32, 256),
+                                       (3, 1, 2, 128, 1024, 128, 256)]],
+    (1, 8, 4, 32768, 128, 4, 64, 256, 32000, "f32"),   # long context
+    (1, 1, 48, 2048, 128, 8, 64, 256, None, "bf16"),   # granite-20b Gq 48
+])
+def test_decode_attention(cuda, case):
+    b, hkv, gq, s, d, bits, group, block_s, kv_len, dt = case
+    q, kc, ks, vc, vs = _dense_case(
+        cuda, s + gq + bits, b, hkv, gq, s, d, bits, group,
+        torch.float32 if dt == "f32" else torch.bfloat16)
+    if kv_len == "slots":
+        kv_len = torch.tensor(_SLOT_LENS, dtype=torch.int32, device=cuda)
+    before = decode_attention_op.launches
+    got = decode_attention_op(q, kc, ks, vc, vs, bits=bits, group=group,
+                              kv_len=kv_len, block_s=block_s)
+    assert decode_attention_op.launches == before + 1
+    _hold(got, _decode_want(q, kc, ks, vc, vs, bits, group, kv_len))
+    if isinstance(kv_len, torch.Tensor):  # each row alone, at its length
+        for i, n in enumerate(_SLOT_LENS):
+            one = decode_attention_op(
+                q[i:i + 1], kc[i:i + 1], ks[i:i + 1], vc[i:i + 1],
+                vs[i:i + 1], bits=bits, group=group, kv_len=n,
+                block_s=block_s)
+            assert torch.equal(one[0], got[i])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_decode_attention_equals_paged_over_the_gathered_view(cuda, bits):
+    """paged_attention over a block table = decode_attention over the
+    gathered view (the two kernels sum in other orders: f32 tolerance)."""
+    gen = torch.Generator(device=cuda).manual_seed(11 + bits)
+    b, hkv, gq, d, s, ps = 6, 8, 4, 128, 1056, 16
+    pools, bt = _pallas_pools(gen, cuda, b, hkv, s, d, bits, 64, ps)
+    lens = torch.tensor(_SLOT_LENS, dtype=torch.int32, device=cuda)
+    q = torch.randn(b, hkv, gq, d, generator=gen, device=cuda)
+    paged = paged_attention_op(q, *pools, bt, lens, bits=bits, group=64)
+    dense = [R._gather_pages(p, bt).contiguous() for p in pools]
+    got = decode_attention_op(q, *dense, bits=bits, group=64, kv_len=lens,
+                              block_s=32)
+    torch.testing.assert_close(got, paged, atol=2e-5, rtol=1e-4)
 
 
 def test_runtime_launches_every_kernel(cuda):
