@@ -17,15 +17,21 @@ is caught:
    through its public entry: llama3.1-8b's slot-arena decode at full
    width, the harness and test shapes, 32,768 positions, Gq 48, and the
    identity with paged attention over a block table.  The attention
-   kernels are also held at shapes they refused before their score rows
-   left shared memory (16,400 positions, W = 5 over 4,096, Gq 48, 35
-   verify rows).  With ``--baseline DIR`` (a checkout of another commit,
-   e.g. the parent's ``git archive``), the arena attention entries of DIR
-   and of this tree are timed at the main shapes in turns.
+   kernels are also held at shapes they refused before their caps were
+   lifted (16,400 positions, W = 5 over 4,096, Gq 48, 35 verify rows) and
+   at the edges of their split across blocks (chunk and stage
+   boundaries, short slots, quant_lens mid-chunk, the staircase across a
+   chunk), each case launched twice and bit-equal, and each arena entry's
+   two CUDA kernels (phase A, phase B) are timed by torch.profiler.  With
+   ``--baseline DIR`` (a checkout of another commit, e.g. the parent's
+   ``git archive``), the arena attention entries of DIR and of this tree
+   are timed at the main shapes in turns.
 3. Runtime: serve the pinned 8-request pattern PD-separated on the paged
    arena of ``llama3.1-8b`` at full width with seeded random bf16
-   weights, count each kernel's launches on that run, and check the
-   paged kernel path against the plain path on one full-width decode.
+   weights, count each kernel's launches on that run, check the paged
+   kernel path against the plain path on one full-width decode, and time
+   one full-width decode step (host enqueue, wall, device busy; with
+   ``--baseline``, also with DIR's paged_attention library in turns).
 4. Speculative runtime: serve the same pattern the same way with
    speculation, ``spec_k=4``: first with n-gram lookahead (random weights
    repeat no n-gram of their output, so it offers no drafts: recorded,
@@ -754,13 +760,106 @@ def repaired_shapes_phase(torch, dev):
           "paged_attention Gq 48")
 
 
-def attention_main_times(torch, dev, ops):
-    """Times of the two arena attention entries at the main path's shapes
-    (one decode step's layer read, W = 1; verify at W = 2 and 5), from
-    ``ops``: the module of this tree or of another checkout."""
+def split_edges_phase(torch, dev):
+    """The split design's edges at the main shapes (6 slots, 8 KV heads,
+    Gq 4, D 128; phase A's chunks of 32 positions at W <= 2 and 64 at W =
+    5, phase B's stages of 128), through both entries of both attention
+    kernels, each launched twice (the two results must be equal bit for
+    bit: no atomics, one order per sum) and held against its plain
+    version: a length at a chunk and stage boundary and one either side,
+    slots shorter than one chunk (lengths 1 and 17), slots whose later
+    chunks all lie beyond their length, quant_lens mid-chunk, the parked
+    row at view - 1, and W = 2 and 5 verify with the staircase across a
+    chunk boundary."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    hkv, gq, d = 8, 4, 128
+    length_sets = {
+        "boundaries": ([1024, 1023, 1025, None, 17, 1],
+                       [1000, 33, 1025, 0, 9, 0]),
+        "short": ([64, 63, 65, 100, 128, 129], [40, 63, 0, 100, 64, 1]),
+    }
+
+    def twice(fn, *args, **kw):
+        a, b = fn(*args, **kw), fn(*args, **kw)
+        a_t = a if isinstance(a, tuple) else (a,)
+        b_t = b if isinstance(b, tuple) else (b,)
+        return a, all(torch.equal(x, y) for x, y in zip(a_t, b_t))
+
+    for w in (1, 2, SPEC_K + 1):
+        pps = -(-(SEQ + DECODE_TOKENS + 2 + (SPEC_K if w > 1 else 0))
+                // PAGE_SIZE)
+        view = pps * PAGE_SIZE
+        n_pages = SLOTS * pps + 1
+        shape = (n_pages, PAGE_SIZE, hkv, d)
+        fp = [torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2)]
+        codes = [torch.randint(-128, 128, shape, generator=gen, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(shape, generator=gen, device=dev) * 0.02 + 1e-3
+                  for _ in range(2)]
+        bt = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+              + 1).reshape(SLOTS, pps).to(torch.int32)
+        qshape = (SLOTS, hkv, gq, d) if w == 1 else (SLOTS, hkv, gq, w, d)
+        q = torch.randn(qshape, generator=gen, device=dev).to(torch.bfloat16)
+        op, plain = ((ops.paged_attention_arena_op,
+                      ref.paged_attention_arena_ref) if w == 1 else
+                     (ops.paged_verify_attention_arena_op,
+                      ref.paged_verify_attention_arena_ref))
+        for name, (kv, qv) in length_sets.items():
+            lens = torch.tensor([view - 1 if n is None else n for n in kv],
+                                dtype=torch.int32, device=dev)
+            qlens = torch.tensor(qv, dtype=torch.int32, device=dev)
+            args = (q, fp[0], fp[1], codes[0], scales[0], codes[1],
+                    scales[1], bt, lens, qlens)
+            (out, m, l), same = twice(op, *args)
+            r_out, r_m, r_l = plain(*args)
+            ulps = bf16_ulps(torch, out, r_out)
+            m_rel = float(((m - r_m).abs()
+                           / r_m.abs().clamp_min(1e-30)).max())
+            l_rel = float(((l - r_l).abs()
+                           / r_l.abs().clamp_min(1e-30)).max())
+            print(f"split edges, arena W={w} {name} lengths: out {ulps} "
+                  f"bf16 ulps (tolerance 2), m rel {m_rel:.3g}, l rel "
+                  f"{l_rel:.3g} (tolerance 1e-5), two launches bit-equal: "
+                  f"{same}")
+            check(ulps <= 2 and m_rel <= 1e-5 and l_rel <= 1e-5 and same,
+                  f"split edges arena W={w} {name}")
+        # the Pallas interface: int8 and int4 pools (P, Hkv, PS, D')
+        pshape = (n_pages, hkv, PAGE_SIZE, d)
+        qf = torch.randn((SLOTS, hkv, gq, d) if w == 1 else
+                         (SLOTS, hkv, w, gq, d), generator=gen, device=dev)
+        p_lens = ([1024, 1023, 1025, view - 1, 17, 1] if w == 1 else
+                  [{2: 63, 5: 62}[w], 1023, 1025 - w, view - w, 17, 1])
+        p_lens = torch.tensor(p_lens, dtype=torch.int32, device=dev)
+        pop, pplain = ((ops.paged_attention_op, ref.paged_attention_ref)
+                       if w == 1 else (ops.paged_verify_attention_op,
+                                       ref.paged_verify_attention_ref))
+        for bits in (8, 4):
+            pools = []
+            for _ in range(2):
+                pools += list(ref.quant_pack_ref(torch.randn(
+                    pshape, generator=gen, device=dev), bits, GROUP))
+            got, same = twice(pop, qf, *pools, bt, p_lens, bits=bits,
+                              group=GROUP)
+            want = pplain(qf, *pools, bt, p_lens, bits=bits, group=GROUP)
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, atol=2e-5, rtol=1e-4))
+            print(f"split edges, Pallas interface W={w} int{bits}: max|err| "
+                  f"{err:.3g} (tolerance atol 2e-5 + rtol 1e-4), two "
+                  f"launches bit-equal: {same}")
+            check(ok and same, f"split edges Pallas W={w} int{bits}")
+
+
+def attention_main_calls(torch, dev, ops):
+    """{"W=1": call, "W=2": call, "W=5": call}: the two arena attention
+    entries at the main path's shapes (one decode step's layer read, W = 1;
+    verify at W = 2 and 5), through ``ops``: the module of this tree or of
+    another checkout."""
     gen = torch.Generator(device=dev).manual_seed(1)
     hkv, gq, d = 8, 4, 128
-    times = {}
+    calls = {}
     for w in (1, 2, SPEC_K + 1):
         pps = -(-(SEQ + DECODE_TOKENS + 2 + (SPEC_K if w > 1 else 0))
                 // PAGE_SIZE)
@@ -781,14 +880,69 @@ def attention_main_times(torch, dev, ops):
         if w == 1:
             q = torch.randn(SLOTS, hkv, gq, d, generator=gen,
                             device=dev).to(torch.bfloat16)
-            times["W=1"] = time_ms(
-                torch, lambda: ops.paged_attention_arena_op(q, *args))
+            calls["W=1"] = (lambda q=q, args=args:
+                            ops.paged_attention_arena_op(q, *args))
         else:
             q = torch.randn(SLOTS, hkv, gq, w, d, generator=gen,
                             device=dev).to(torch.bfloat16)
-            times[f"W={w}"] = time_ms(
-                torch, lambda: ops.paged_verify_attention_arena_op(q, *args))
-    return times
+            calls[f"W={w}"] = (lambda q=q, args=args:
+                               ops.paged_verify_attention_arena_op(q, *args))
+    return calls
+
+
+def attention_main_times(torch, dev, ops):
+    """Times of the arena attention entries at the main path's shapes
+    (``attention_main_calls``)."""
+    return {w: time_ms(torch, fn)
+            for w, fn in attention_main_calls(torch, dev, ops).items()}
+
+
+def attention_phase_times(torch, dev):
+    """Device time per call of each CUDA kernel that one arena attention
+    call issues at the main shapes (the split design's phase A,
+    ``split_scores``, and phase B, ``split_values``), from torch.profiler
+    over 20 back-to-back calls; and the host's time to enqueue one call.
+    Returns {"W=1": {"phase_a_ms": .., "phase_b_ms": .., "kernels_per_call":
+    .., "host_ms": ..}, ...}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    out = {}
+    for w, fn in attention_main_calls(torch, dev, ops).items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_ms = (time.perf_counter() - t0) / 100 * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        phases, launched = {}, 0
+        for e in prof.key_averages():
+            dt = getattr(e, "device_time_total", None)
+            if dt is None:
+                dt = e.cuda_time_total
+            for key, name in (("phase_a_ms", "split_scores"),
+                              ("phase_b_ms", "split_values")):
+                if name in e.key and e.count:
+                    phases[key] = dt / e.count / 1e3
+                    launched += e.count
+        check(set(phases) == {"phase_a_ms", "phase_b_ms"},
+              f"profiler saw both phases at {w}")
+        out[w] = dict(phases, kernels_per_call=launched / 20,
+                      host_ms=host_ms)
+        print(f"arena attention {w} at the main shapes: phase A "
+              f"{phases['phase_a_ms']:.4f} ms + phase B "
+              f"{phases['phase_b_ms']:.4f} ms of device time per call "
+              f"(torch.profiler, {launched / 20:g} CUDA kernels per call), "
+              f"host enqueue {host_ms:.4f} ms per call")
+    return out
 
 
 def compare_with(torch, baseline: Path):
@@ -957,6 +1111,110 @@ def print_speculation(plain, spec) -> None:
               f"{r.verify_steps} committed={r.spec_committed} "
               f"drafts={r.drafts_accepted}/{r.drafts_offered} "
               f"accept_rate={rate:.3f} tokens={list(map(int, r.tokens))}")
+
+
+def _baseline_library(torch, baseline: Path, name: str):
+    """The ctypes library of ``name`` built from ``baseline``'s sources
+    with this tree's nvcc flags, with this tree's argument types (the C
+    interfaces are the same)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    src = baseline / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+    out = ROOT / "build" / "baseline" / f"{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"baseline {name}: {proc.stdout[-2000:]}")
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in build.SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
+def decode_step_times(torch, dev, cfg, params, baseline=None):
+    """One full-width paged decode step of SLOTS slots, as phase 3 runs
+    it (lengths 1024-1055, mixed residency, 32 paged_attention_arena
+    launches): the host's time to enqueue the step, its wall time ending in
+    a sync (medians of 8), and the device's busy time per step from
+    torch.profiler.  With ``baseline``, the same step with the baseline's
+    paged_attention library in place of this tree's, in turns (this,
+    baseline, baseline, this).  Returns {label: [runs]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.quality import _paged_caches, init_paged_pools
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import decode_step
+
+    pps = -(-(SEQ + DECODE_TOKENS + 2) // PAGE_SIZE)
+    n_pages = SLOTS * pps + 1
+    pool, qc, qs = init_paged_pools(cfg, n_pages, PAGE_SIZE, 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+          + 1).reshape(SLOTS, pps).to(torch.int32)
+    lens = torch.tensor([SEQ + 16, SEQ + 6, SEQ, pps * PAGE_SIZE - 1,
+                         SEQ + 26, SEQ], dtype=torch.int32, device=dev)
+    qlens = torch.tensor([SEQ, 0, SEQ, 0, 0, SEQ], dtype=torch.int32,
+                         device=dev)
+    paged = _paged_caches(pool, qc, qs, bt, qlens)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+
+    def step():
+        return decode_step(cfg, params, paged, tok, lens)
+
+    def measure(label):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        hosts, walls = [], []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            step()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            hosts.append((t1 - t0) * 1e3)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+        busy = attn = 0.0
+        for e in prof.key_averages():
+            dt = getattr(e, "self_device_time_total", None)
+            if dt is None:
+                dt = e.self_cuda_time_total
+            busy += dt
+            if "split_" in e.key or "paged_attention_kernel" in e.key:
+                attn += dt
+        run = dict(host_ms=statistics.median(hosts),
+                   wall_ms=statistics.median(walls),
+                   device_busy_ms=busy / 3 / 1e3, attention_ms=attn / 3 / 1e3)
+        print(f"decode step ({label}): host enqueue {run['host_ms']:.2f} ms, "
+              f"wall {run['wall_ms']:.2f} ms, device busy "
+              f"{run['device_busy_ms']:.2f} ms of which paged attention "
+              f"{run['attention_ms']:.2f} ms (torch.profiler)")
+        return run
+
+    runs = {"this tree": []}
+    if baseline is None:
+        runs["this tree"].append(measure("this tree"))
+        return runs
+    ours = build.load("paged_attention")
+    theirs = _baseline_library(torch, baseline, "paged_attention")
+    runs[str(baseline)] = []
+    try:
+        for label, lib in (("this tree", ours), (str(baseline), theirs),
+                           (str(baseline), theirs), ("this tree", ours)):
+            build._LOADED["paged_attention"] = lib
+            runs[label].append(measure(label))
+    finally:
+        build._LOADED["paged_attention"] = ours
+    return runs
 
 
 def reference_check(torch, rt, cfg, params, dev):
@@ -1343,6 +1601,11 @@ def main(argv) -> int:
           f"{decode_launches}")
     check(decode_launches > 0, "decode_attention launched")
     repaired_shapes_phase(torch, dev)
+    split_edges_phase(torch, dev)
+    phase_times = attention_phase_times(torch, dev)
+    results["paged_attention"]["phase_times"] = phase_times["W=1"]
+    results["paged_verify_attention"]["phase_times"] = {
+        w: t for w, t in phase_times.items() if w != "W=1"}
     torch.cuda.synchronize()
     for k, r in results.items():
         print(f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -1369,6 +1632,9 @@ def main(argv) -> int:
     for k, n in launches.items():
         check(n > 0, f"{k} launched on the main path")
     err, scale, gap, same = reference_check(torch, rt, cfg, params, dev)
+    decode_step_times(torch, dev, cfg, params,
+                      None if args.baseline is None
+                      else args.baseline.resolve())
     tol = 2e-2 + 1.6e-2 * scale
     check(err <= tol and (same or gap <= tol),
           "full-width decode through the kernel agrees with the plain path")

@@ -1,6 +1,6 @@
 // Device code shared by the paged attention kernels (paged_attention.cu,
-// paged_verify_attention.cu): bf16 rounding, dtype conversions, and the two
-// page layouts a kernel reads K/V through.
+// paged_verify_attention.cu through paged_split.cuh): bf16 rounding, dtype
+// conversions, and the two page layouts a kernel reads K/V through.
 //
 //   PallasPages  the Pallas kernels' pools: int8 codes (P, Hkv, PS, D) or
 //                nibble-packed int4 (P, Hkv, PS, D/2), f32 group scales
@@ -9,6 +9,16 @@
 //                bf16 fp pages, int8 codes and f32 per-channel scales;
 //                quant values dequantize in f32 and round to bf16 (the
 //                reference's _blend_quant).
+//
+// Both read K/V in units of 8 channels of one position.  fetch_k() issues
+// a K unit's vector loads (16 bytes of bf16; 8 or 4 bytes of codes with
+// their scales as two float4s) and decode() turns a unit into 8 f32
+// values, so a thread keeps several units' loads in flight before it uses
+// any.  V goes through shared memory: stage_v() copies one position's 16
+// channels as stored with cp.async (no registers held while in flight),
+// unstage() reads a unit back for decode().  Units start at a multiple of
+// 8 channels and D is a multiple of 16, so every access is aligned when
+// the pools are 16-byte aligned (the wrappers check).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,7 +49,39 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Where K/V element (t, d) of slot b, head h lives, and how it decodes.
+// Asynchronous copies from device to shared memory (sm_80 and up).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most n of this thread's copy groups are still in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+__device__ __forceinline__ void store8(float* o, const float* v) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 struct PallasPages {
   const uint8_t* kc;
   const float* ks;
@@ -47,34 +89,84 @@ struct PallasPages {
   const float* vs;
   int hkv, ps, d, bits, group;
 
-  __device__ __forceinline__ long long row(int page, int h, int r) const {
-    return ((long long)page * hkv + h) * ps + r;
-  }
-  __device__ __forceinline__ float load(const uint8_t* c, const float* s,
-                                        long long rw, int dd) const {
-    int q;
+  struct Unit {
+    uint2 c;          // 8 int8 codes, or 8 nibbles in c.x
+    float4 s0, s1;    // the 8 channels' scales
+  };
+
+  __device__ __forceinline__ Unit fetch_k(int page, int h, int r, int c8,
+                                          bool) const {
+    const long long rw = ((long long)page * hkv + h) * ps + r;
+    Unit u;
     if (bits == 4) {
-      const uint8_t byte = c[rw * (d / 2) + dd / 2];
-      q = (int)((dd & 1) ? (byte >> 4) : (byte & 0x0F)) - 8;
+      u.c.x = *reinterpret_cast<const uint32_t*>(kc + rw * (d / 2) + c8 / 2);
+      u.c.y = 0;
     } else {
-      q = reinterpret_cast<const int8_t*>(c)[rw * d + dd];
+      u.c = *reinterpret_cast<const uint2*>(kc + rw * d + c8);
     }
-    return (float)q * s[rw * (d / group) + dd / group];
+    const float* sr = ks + rw * (d / group);
+    if (group % 8 == 0) {
+      const float v = sr[c8 / group];
+      u.s0 = make_float4(v, v, v, v);
+      u.s1 = u.s0;
+    } else {
+      u.s0 = make_float4(sr[c8 / group], sr[(c8 + 1) / group],
+                         sr[(c8 + 2) / group], sr[(c8 + 3) / group]);
+      u.s1 = make_float4(sr[(c8 + 4) / group], sr[(c8 + 5) / group],
+                         sr[(c8 + 6) / group], sr[(c8 + 7) / group]);
+    }
+    return u;
   }
-  __device__ __forceinline__ float k(int page, int h, int r, int dd,
-                                     bool) const {
-    return load(kc, ks, row(page, h, r), dd);
+  // V of one position's 16 channels c0 .. c0+15 as stored, copied
+  // asynchronously to dst (kStageBytes): the codes, then the scales of
+  // groups c0 / group .. (c0 + 15) / group.
+  static constexpr int kStageBytes = 80;
+  __device__ __forceinline__ void stage_v(uint8_t* dst, int page, int h,
+                                          int r, int c0, bool) const {
+    const long long rw = ((long long)page * hkv + h) * ps + r;
+    if (bits == 4)
+      cp_async8(dst, vc + rw * (d / 2) + c0 / 2);
+    else
+      cp_async16(dst, vc + rw * d + c0);
+    const float* sr = vs + rw * (d / group);
+    for (int k = c0 / group; k <= (c0 + 15) / group; ++k)
+      cp_async4(dst + 16 + 4 * (k - c0 / group), sr + k);
   }
-  __device__ __forceinline__ float v(int page, int h, int r, int dd,
-                                     bool) const {
-    return load(vc, vs, row(page, h, r), dd);
-  }
-  // K elements dd .. dd+3 of one position.
-  __device__ __forceinline__ void k4(int page, int h, int r, int dd, bool,
-                                     float* o) const {
-    const long long rw = row(page, h, r);
+  // the unit of channels c0 + c8 .. c0 + c8 + 7 of a staged position
+  __device__ __forceinline__ Unit unstage(const uint8_t* src, int c0, int c8,
+                                          bool) const {
+    Unit u;
+    if (bits == 4) {
+      u.c.x = *reinterpret_cast<const uint32_t*>(src + c8 / 2);
+      u.c.y = 0;
+    } else {
+      u.c = *reinterpret_cast<const uint2*>(src + c8);
+    }
+    const float* sc = reinterpret_cast<const float*>(src + 16);
+    const int g0 = c0 / group;
+    float s[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = load(kc, ks, rw, dd + i);
+    for (int i = 0; i < 8; ++i) s[i] = sc[(c0 + c8 + i) / group - g0];
+    u.s0 = make_float4(s[0], s[1], s[2], s[3]);
+    u.s1 = make_float4(s[4], s[5], s[6], s[7]);
+    return u;
+  }
+  // code * scale in f32, no rounding
+  __device__ __forceinline__ void decode(const Unit& u, bool,
+                                         float* o) const {
+    const float s[8] = {u.s0.x, u.s0.y, u.s0.z, u.s0.w,
+                        u.s1.x, u.s1.y, u.s1.z, u.s1.w};
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      int q;
+      if (bits == 4)
+        q = (int)((u.c.x >> (4 * i)) & 0xFu) - 8;
+      else
+        q = (int)(int8_t)(((i < 4 ? u.c.x : u.c.y) >> (8 * (i & 3))) & 0xFFu);
+      v[i] = (float)q * s[i];
+    }
+    store8(o, v);
   }
 };
 
@@ -87,43 +179,80 @@ struct ArenaPages {
   const float* vs;
   int hkv, ps, d;
 
-  __device__ __forceinline__ long long at(int page, int h, int r,
-                                          int dd) const {
-    return (((long long)page * ps + r) * hkv + h) * d + dd;
-  }
-  __device__ __forceinline__ float k(int page, int h, int r, int dd,
-                                     bool quant) const {
-    const long long i = at(page, h, r, dd);
-    return quant ? bf16_round((float)kc[i] * ks[i]) : __bfloat162float(kf[i]);
-  }
-  __device__ __forceinline__ float v(int page, int h, int r, int dd,
-                                     bool quant) const {
-    const long long i = at(page, h, r, dd);
-    return quant ? bf16_round((float)vc[i] * vs[i]) : __bfloat162float(vf[i]);
-  }
-  // K elements dd .. dd+3 of one position, in one vector load per pool
-  // (dd % 4 == 0 and 16-byte aligned pools: the wrappers check both).
-  __device__ __forceinline__ void k4(int page, int h, int r, int dd,
-                                     bool quant, float* o) const {
-    const long long i = at(page, h, r, dd);
+  struct Unit {
+    uint4 raw;        // 8 bf16 values, or 8 int8 codes in raw.x, raw.y
+    float4 s0, s1;    // quant units: the 8 channels' scales
+  };
+
+  __device__ __forceinline__ Unit fetch_k(int page, int h, int r, int c8,
+                                          bool quant) const {
+    const long long i = (((long long)page * ps + r) * hkv + h) * d + c8;
+    Unit u;
     if (quant) {
-      const char4 c = *reinterpret_cast<const char4*>(kc + i);
-      const float4 s = *reinterpret_cast<const float4*>(ks + i);
-      o[0] = bf16_round((float)c.x * s.x);
-      o[1] = bf16_round((float)c.y * s.y);
-      o[2] = bf16_round((float)c.z * s.z);
-      o[3] = bf16_round((float)c.w * s.w);
+      const uint2 codes = *reinterpret_cast<const uint2*>(kc + i);
+      u.raw = make_uint4(codes.x, codes.y, 0u, 0u);
+      u.s0 = *reinterpret_cast<const float4*>(ks + i);
+      u.s1 = *reinterpret_cast<const float4*>(ks + i + 4);
     } else {
-      const uint2 raw = *reinterpret_cast<const uint2*>(kf + i);
-      const __nv_bfloat162 lo =
-          *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-      const __nv_bfloat162 hi =
-          *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-      o[0] = __low2float(lo);
-      o[1] = __high2float(lo);
-      o[2] = __low2float(hi);
-      o[3] = __high2float(hi);
+      u.raw = *reinterpret_cast<const uint4*>(kf + i);
     }
+    return u;
+  }
+  // V of one position's 16 channels c0 .. c0+15 as stored, copied
+  // asynchronously to dst (kStageBytes): 16 codes then 16 scales, or 16
+  // bf16 values.
+  static constexpr int kStageBytes = 80;
+  __device__ __forceinline__ void stage_v(uint8_t* dst, int page, int h,
+                                          int r, int c0, bool quant) const {
+    const long long i = (((long long)page * ps + r) * hkv + h) * d + c0;
+    if (quant) {
+      cp_async16(dst, vc + i);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        cp_async16(dst + 16 + 16 * k, vs + i + 4 * k);
+    } else {
+      cp_async16(dst, vf + i);
+      cp_async16(dst + 16, vf + i + 8);
+    }
+  }
+  // the unit of channels c0 + c8 .. c0 + c8 + 7 of a staged position
+  __device__ __forceinline__ Unit unstage(const uint8_t* src, int, int c8,
+                                          bool quant) const {
+    Unit u;
+    if (quant) {
+      const uint2 codes = *reinterpret_cast<const uint2*>(src + c8);
+      u.raw = make_uint4(codes.x, codes.y, 0u, 0u);
+      u.s0 = *reinterpret_cast<const float4*>(src + 16 + 4 * c8);
+      u.s1 = *reinterpret_cast<const float4*>(src + 32 + 4 * c8);
+    } else {
+      u.raw = *reinterpret_cast<const uint4*>(src + 2 * c8);
+    }
+    return u;
+  }
+  // quant: code * scale in f32, rounded to bf16; fp: the bf16 values
+  __device__ __forceinline__ void decode(const Unit& u, bool quant,
+                                         float* o) const {
+    float v[8];
+    if (quant) {
+      const float s[8] = {u.s0.x, u.s0.y, u.s0.z, u.s0.w,
+                          u.s1.x, u.s1.y, u.s1.z, u.s1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = (int)(int8_t)(((i < 4 ? u.raw.x : u.raw.y) >>
+                                     (8 * (i & 3))) & 0xFFu);
+        v[i] = bf16_round((float)q * s[i]);
+      }
+    } else {
+      const uint32_t w[4] = {u.raw.x, u.raw.y, u.raw.z, u.raw.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 pair =
+            *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+        v[2 * i] = __low2float(pair);
+        v[2 * i + 1] = __high2float(pair);
+      }
+    }
+    store8(o, v);
   }
 };
 

@@ -9,7 +9,9 @@ launch raises.
 
 Every wrapper carries ``launches``, a plain integer it adds one to each
 time it launches its kernel (and at no other time), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  The paged attention
+wrappers count one per call although a call issues two CUDA kernels
+(the split design's phases A and B).
 """
 from __future__ import annotations
 
@@ -19,10 +21,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-
-# Dynamic shared memory a Hopper block may use.
-_MAX_SMEM = 232_448
-
 
 def _use_kernel(t: torch.Tensor, interpret: Optional[bool]) -> bool:
     if interpret is None:
@@ -48,42 +46,63 @@ def _check(t: torch.Tensor, name: str, dtypes, device: torch.device,
 
 
 def _launch(lib: str, fn: str, device: torch.device, *args) -> None:
+    # The raw handle of the current stream: building a torch Stream object
+    # costs ~6 us of host time per call (H100 machine, torch 2.11), and the
+    # paged attention wrappers run once per layer per decode step.
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(build.load(lib), fn)(*args, stream)
+        rc = getattr(build.load(lib), fn)(
+            *args, torch._C._cuda_getCurrentRawStream(device.index))
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
 
 
-# What the attention kernels still refuse, and why.  paged_attention's
-# score rows live in an f32 workspace in device memory, (B, Hkv, rows,
-# PPS*PS), allocated here through PyTorch's caching allocator;
-# paged_verify_attention's stay in shared memory where they fit (the
-# serving sizes) and take the workspace beyond; so a slot's view has no
-# length cap but device memory.  Query rows are taken in tiles on a second
-# grid axis (paged_attention: 16 per block; paged_verify_attention: 32, 16
-# at D = 512), so there is no row cap.  What remains:
-#   * the block table is copied into shared memory: PPS * 4 bytes plus the
-#     tile's q must fit a block's 232,448 bytes (about 56,000 pages, some
-#     900,000 positions at page size 16);
-#   * paged_verify_attention reads K four channels at a time and splits
-#     the channels over its 512 threads: D a multiple of 4 dividing 512;
-#   * decode_attention walks the positions in chunks and gives each lane
-#     four channels: D a multiple of 4, at most 512.
-_PAGED_TILE = 16
+# What the paged attention kernels take, and why.  Both share
+# csrc/paged_split.cuh's design, two CUDA launches per wrapper call (the
+# launch counter still adds one per call).  Phase A cuts each slot's view
+# into chunks of 16-128 positions across blocks and writes every row's
+# scores and each chunk's max to an f32 workspace allocated here: (B, Hkv,
+# rows, PPS*PS rounded up to 4) scores, then (B, Hkv, rows,
+# ceil(PPS*PS / 16)) chunk maxima.  Phase B takes each row's exact max
+# from the chunk maxima and sums p * v per (slot, KV head, 16 channels)
+# over the positions in order, so the arena entries keep ref.py's
+# rounding points and sums.  A block reads only its chunk's or stage's
+# block-table entries and rows go to tiles of 32 on a second grid axis,
+# so neither the view, the block table nor the rows have a cap but device
+# memory.  The bound is bytes (every visible K and V element read once);
+# what still holds the kernels back is latency (phase A's loads and dot
+# products do not overlap; phase B's stages are barrier-separated steps in
+# few warps) and the arena's f32 per-channel scales (5 bytes per
+# quant-resident element).  What they refuse:
+#   * D not a multiple of 16 in [16, 512]: 8-channel vector units, phase
+#     B's 16-channel slices, a tile's q in shared memory;
+#   * an empty block table (PPS < 1);
+#   * pools not 16-byte aligned (vector loads).
+# decode_attention walks the positions in chunks and gives each lane four
+# channels: D a multiple of 4, at most 512.
+_SPLIT_MIN_CHUNK = 16      # paged_split.cuh's kMinChunk
 
 
-def _smem_bytes(gq: int, d: int, pps: int) -> int:
-    return 4 * (min(gq, _PAGED_TILE) * d + 4) + 4 * pps
+def _check_paged_shape(name: str, rows: int, d: int, pps: int) -> None:
+    """Raise where the paged attention kernels cannot take the shape."""
+    if rows < 1 or d < 16 or d % 16 or d > 512 or pps < 1:
+        raise ValueError(f"{name}: rows={rows} D={d} PPS={pps} (D a "
+                         f"multiple of 16 in [16, 512], PPS >= 1)")
 
 
-def _check_paged_shape(name: str, gq: int, d: int, pps: int) -> None:
-    """Raise where paged_attention.cu cannot take the shape: only a block
-    table too long for shared memory."""
-    if gq < 1 or d < 1 or _smem_bytes(gq, d, pps) > _MAX_SMEM:
-        raise ValueError(f"{name}: Gq={gq} D={d} PPS={pps} (smem "
-                         f"{_smem_bytes(gq, d, pps)} bytes, at most "
-                         f"{_MAX_SMEM})")
+def _check_aligned(name: str, **pools: torch.Tensor) -> None:
+    for pool, t in pools.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {pool} is not 16-byte aligned "
+                             f"(vector loads)")
+
+
+def _split_workspace(b: int, hkv: int, rows: int, s: int,
+                     dev) -> torch.Tensor:
+    """The paged kernels' f32 workspace: every row's scores over the view,
+    then every row's chunk maxima."""
+    return torch.empty(b * hkv * rows * (-(-s // 4) * 4
+                                         + -(-s // _SPLIT_MIN_CHUNK)),
+                       dtype=torch.float32, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +247,9 @@ def paged_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
     if bits not in (4, 8) or d % group:
         raise ValueError(f"paged_attention: bits={bits} group={group} D={d}")
     _check_paged_shape("paged_attention", gq, d, pps)
-    ws = torch.empty((b, hkv, gq, pps * ps), dtype=torch.float32, device=dev)
+    _check_aligned("paged_attention", k_codes=k_codes, k_scale=k_scale,
+                   v_codes=v_codes, v_scale=v_scale)
+    ws = _split_workspace(b, hkv, gq, pps * ps, dev)
     out = torch.empty_like(q)
     _launch("paged_attention", "paged_attention", dev, q.data_ptr(),
             int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
@@ -275,7 +296,10 @@ def paged_attention_arena_op(
     _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
     _check(quant_lens, "quant_lens", (torch.int32,), dev, (b,))
     _check_paged_shape("paged_attention_arena", gq, d, pps)
-    ws = torch.empty((b, hkv, gq, pps * ps), dtype=torch.float32, device=dev)
+    _check_aligned("paged_attention_arena", k_pool=k_pool, v_pool=v_pool,
+                   k_codes=k_codes, k_scale=k_scale, v_codes=v_codes,
+                   v_scale=v_scale)
+    ws = _split_workspace(b, hkv, gq, pps * ps, dev)
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, gq), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gq), dtype=torch.float32, device=dev)
@@ -288,39 +312,6 @@ def paged_attention_arena_op(
             1.0 / math.sqrt(d))
     paged_attention_arena_op.launches += 1
     return out, m, l
-
-
-# The verify kernel: 512 threads per (slot, KV head, tile of rows).
-_VERIFY_THREADS = 512
-
-
-def _verify_smem_bytes(rows: int, d: int, pps: int,
-                       s_max_smem: int = 0) -> int:
-    """Shared memory of one verify block; ``s_max_smem`` positions of
-    scores kept there (0: the scores go to the device workspace)."""
-    tile = min(rows, 32, 16 * (_VERIFY_THREADS // d))
-    return 4 * tile * (d + 1 + s_max_smem) + 4 * pps
-
-
-def _verify_workspace(b: int, hkv: int, rows: int, d: int, pps: int,
-                      ps: int, dev) -> Optional[torch.Tensor]:
-    """The scores' device workspace, or None where they fit in shared
-    memory (the kernel's faster form, which the serving sizes take)."""
-    if _verify_smem_bytes(rows, d, pps, pps * ps) <= _MAX_SMEM:
-        return None
-    return torch.empty((b, hkv, rows, pps * ps), dtype=torch.float32,
-                       device=dev)
-
-
-def _check_verify_shape(name: str, rows: int, d: int, pps: int) -> None:
-    """Raise where paged_verify_attention.cu cannot take the shape: D not
-    a multiple of 4 dividing 512, or a block table too long for shared
-    memory."""
-    if (rows < 1 or d < 4 or d % 4 or _VERIFY_THREADS % d
-            or _verify_smem_bytes(rows, d, pps) > _MAX_SMEM):
-        raise ValueError(f"{name}: W*Gq={rows} D={d} PPS={pps} (D a "
-                         f"multiple of 4 dividing {_VERIFY_THREADS}; smem "
-                         f"at most {_MAX_SMEM} bytes)")
 
 
 def paged_verify_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
@@ -356,14 +347,15 @@ def paged_verify_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
     if bits not in (4, 8) or d % group:
         raise ValueError(f"paged_verify_attention: bits={bits} "
                          f"group={group} D={d}")
-    _check_verify_shape("paged_verify_attention", w * gq, d, pps)
-    ws = _verify_workspace(b, hkv, w * gq, d, pps, ps, dev)
+    _check_paged_shape("paged_verify_attention", w * gq, d, pps)
+    _check_aligned("paged_verify_attention", k_codes=k_codes,
+                   k_scale=k_scale, v_codes=v_codes, v_scale=v_scale)
+    ws = _split_workspace(b, hkv, w * gq, pps * ps, dev)
     out = torch.empty_like(q)
     _launch("paged_verify_attention", "paged_verify_attention", dev,
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
             k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-            block_tables.data_ptr(), kv_lens.data_ptr(),
-            None if ws is None else ws.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr(), ws.data_ptr(),
             out.data_ptr(), b, hkv, w, gq, d, pps, ps, bits, group,
             1.0 / math.sqrt(d))
     paged_verify_attention_op.launches += 1
@@ -401,14 +393,14 @@ def paged_verify_attention_arena_op(
                         ("k_scale", k_scale, torch.float32),
                         ("v_scale", v_scale, torch.float32)):
         _check(t, name, (dt,), dev, pool_shape)
-        if t.data_ptr() % 16:
-            raise ValueError(f"paged_verify_attention_arena: {name} is not "
-                             f"16-byte aligned (vector loads)")
     _check(block_tables, "block_tables", (torch.int32,), dev, (b, pps))
     _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
     _check(quant_lens, "quant_lens", (torch.int32,), dev, (b,))
-    _check_verify_shape("paged_verify_attention_arena", gq * w, d, pps)
-    ws = _verify_workspace(b, hkv, gq * w, d, pps, ps, dev)
+    _check_paged_shape("paged_verify_attention_arena", gq * w, d, pps)
+    _check_aligned("paged_verify_attention_arena", k_pool=k_pool,
+                   v_pool=v_pool, k_codes=k_codes, k_scale=k_scale,
+                   v_codes=v_codes, v_scale=v_scale)
+    ws = _split_workspace(b, hkv, gq * w, pps * ps, dev)
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
@@ -416,7 +408,7 @@ def paged_verify_attention_arena_op(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
             v_scale.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
-            quant_lens.data_ptr(), None if ws is None else ws.data_ptr(),
+            quant_lens.data_ptr(), ws.data_ptr(),
             out.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, gq, w, d,
             pps, ps, 1.0 / math.sqrt(d))
     paged_verify_attention_arena_op.launches += 1

@@ -192,14 +192,15 @@ def test_decode_attention_refuses_what_the_pallas_kernel_asserts():
 ])
 def test_attention_shape_checks_take_long_views_and_many_rows(name, rows, d,
                                                               pps):
-    """The caps on a slot's view and on query rows are gone: only a block
-    table too long for shared memory (about 56,000 pages) and, for the
-    verify kernel, D not a multiple of 4 dividing 512 are refused."""
+    """Neither paged kernel caps a slot's view, its block table or its query
+    rows: each block reads only its chunk's (phase A) or tile's (phase B)
+    block-table entries, and rows go to tiles.  Only D outside the
+    multiples of 16 in [16, 512] and an empty block table are refused."""
     O._check_paged_shape(name, rows, d, pps)
-    O._check_verify_shape(name, rows, d, pps)
+    O._check_paged_shape(name, rows, d, 60_000)
     with pytest.raises(ValueError):
-        O._check_paged_shape(name, rows, d, 60_000)
+        O._check_paged_shape(name, rows, 100, pps)
     with pytest.raises(ValueError):
-        O._check_verify_shape(name, rows, d, 60_000)
+        O._check_paged_shape(name, rows, 1024, pps)
     with pytest.raises(ValueError):
-        O._check_verify_shape(name, rows, 96, pps)
+        O._check_paged_shape(name, rows, d, 0)

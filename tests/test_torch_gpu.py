@@ -205,11 +205,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         quant_pack_op(x.t())                            # not contiguous
     with pytest.raises(TypeError):
         quant_pack_op(x.to(torch.float16))
-    args = list(_arena_case(cuda, 0, b=1, pps=4))
-    args[7] = torch.ones(1, 60_000, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):                 # block table > smem
+    args = list(_arena_case(cuda, 0, b=1, pps=1, d=1024))
+    with pytest.raises(ValueError):                 # D > 512
         paged_attention_arena_op(*args)
-    args[0] = torch.zeros(1, 8, 4, 9, 128, dtype=torch.bfloat16,
+    args[0] = torch.zeros(1, 8, 4, 9, 1024, dtype=torch.bfloat16,
                           device=cuda)
     with pytest.raises(ValueError):
         paged_verify_attention_arena_op(*args)
@@ -279,6 +278,85 @@ def test_paged_attention_many_query_rows(cuda, bits):
     got = paged_verify_attention_op(qv, *pools, bt, lens, bits=bits,
                                     group=64)
     want = R.paged_verify_attention_ref(qv, *pools, bt, lens, bits, 64)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The split design's edges: at the main shape (6 slots, 8 KV heads, a view
+# of 1056 or 1072 positions) phase A takes chunks of 32 positions (W <= 2)
+# or 64 (W = 5) and phase B stages of 128
+# ---------------------------------------------------------------------------
+_SPLIT_LENS = {
+    # chunk boundary and one either side, then slots shorter than a chunk
+    # and the parked row at view - 1 (set below)
+    "boundaries": ([1024, 1023, 1025, None, 17, 1],
+                   [1000, 33, 1025, 0, 9, 0]),      # quant_lens mid-chunk
+    # a slot whose later chunks all lie beyond its length, a tile boundary
+    "short": ([64, 63, 65, 100, 128, 129],
+              [40, 63, 0, 100, 64, 1]),
+}
+
+
+def _two_launches(op, *args, **kw):
+    """The op's result, after checking that a second launch on the same
+    input gives the same bits (no atomics, one order per sum)."""
+    first = op(*args, **kw)
+    second = op(*args, **kw)
+    for a, b in zip(first if isinstance(first, tuple) else (first,),
+                    second if isinstance(second, tuple) else (second,)):
+        assert torch.equal(a, b)
+    return first
+
+
+@pytest.mark.parametrize("w", [1, 2, 5])
+@pytest.mark.parametrize("lens", sorted(_SPLIT_LENS))
+def test_split_edges_arena(cuda, w, lens):
+    args = list(_arena_case(cuda, 20 + w, pps=66 if w == 1 else 67))
+    view = args[7].shape[1] * 16
+    kv, qv = _SPLIT_LENS[lens]
+    args[8] = torch.tensor([view - 1 if n is None else n for n in kv],
+                           dtype=torch.int32, device=cuda)
+    args[9] = torch.tensor(qv, dtype=torch.int32, device=cuda)
+    if w == 1:
+        op, plain = paged_attention_arena_op, R.paged_attention_arena_ref
+    else:
+        b, hkv, gq, d = args[0].shape
+        gen = torch.Generator(device=cuda).manual_seed(30 + w)
+        args[0] = torch.randn(b, hkv, gq, w, d, generator=gen,
+                              device=cuda).to(torch.bfloat16)
+        op, plain = (paged_verify_attention_arena_op,
+                     R.paged_verify_attention_arena_ref)
+    out, m, l = _two_launches(op, *args)
+    r_out, r_m, r_l = plain(*args)
+    torch.testing.assert_close(m, r_m, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    assert _bf16_ulps(out, r_out) <= 2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("w", [1, 2, 5])
+def test_split_edges_pallas(cuda, bits, w):
+    """The Pallas interfaces at the same edges; for W > 1 the staircase
+    crosses a chunk boundary (at W=5 the rows of slot 0 see 62..66
+    positions, of slot 1 1023..1027)."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + w + bits)
+    s = 1056 if w == 1 else 1072
+    pools, bt = _pallas_pools(gen, cuda, 6, 8, s, 128, bits, 64, 16)
+    if w == 1:
+        q = torch.randn(6, 8, 4, 128, generator=gen, device=cuda)
+        lens = [1024, 1023, 1025, s - 1, 17, 1]
+    else:
+        q = torch.randn(6, 8, w, 4, 128, generator=gen, device=cuda)
+        lens = [{2: 63, 5: 62}[w], 1023, 1025 - w, s - w, 17, 1]
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if w == 1:
+        got = _two_launches(paged_attention_op, q, *pools, bt, lens,
+                            bits=bits, group=64)
+        want = R.paged_attention_ref(q, *pools, bt, lens, bits, 64)
+    else:
+        got = _two_launches(paged_verify_attention_op, q, *pools, bt, lens,
+                            bits=bits, group=64)
+        want = R.paged_verify_attention_ref(q, *pools, bt, lens, bits, 64)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
