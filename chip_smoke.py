@@ -11,12 +11,15 @@ is caught:
 2. Kernels: on the card, hold each kernel against its plain PyTorch
    version at the main path's shapes (plus int4, ragged-T, staircase and
    scratch-page cases; the Hadamard kernel also bit for bit against
-   numpy's ``x @ h`` on the host), and time it, its plain version and,
-   where one PyTorch call computes the same function, that call.
+   numpy's ``x @ h`` on the host at D 64, 128 and 256), and time it, its
+   plain version and, where one PyTorch call computes the same function,
+   that call; decode_attention and hadamard also by their device time per
+   call from torch.profiler and the host's enqueue time per call.
    ``decode_attention``, which no serving path calls, is driven here
    through its public entry: llama3.1-8b's slot-arena decode at full
    width, the harness and test shapes, 32,768 positions, Gq 48, and the
-   identity with paged attention over a block table.  The attention
+   identity with paged attention over a block table, and at the edges of
+   its split of the positions into blocks of 64.  The attention
    kernels are also held at shapes they refused before their caps were
    lifted (16,400 positions, W = 5 over 4,096, Gq 48, 35 verify rows) and
    at the edges of their split across blocks (chunk and stage
@@ -24,8 +27,9 @@ is caught:
    chunk), each case launched twice and bit-equal, and each arena entry's
    two CUDA kernels (phase A, phase B) are timed by torch.profiler.  With
    ``--baseline DIR`` (a checkout of another commit, e.g. the parent's
-   ``git archive``), the arena attention entries of DIR and of this tree
-   are timed at the main shapes in turns.
+   ``git archive``), the arena attention entries, decode_attention and
+   hadamard of DIR and of this tree are timed at the main shapes in
+   turns.
 3. Runtime: serve the pinned 8-request pattern PD-separated on the paged
    arena of ``llama3.1-8b`` at full width with seeded random bf16
    weights, count each kernel's launches on that run, check the paged
@@ -129,6 +133,45 @@ def bf16_ulps(torch, a, b) -> int:
         i = x.float().view(torch.int32) >> 16
         return torch.where(i < 0, -(i & 0x7FFF), i).long()
     return int((ordered(a) - ordered(b)).abs().max())
+
+
+def device_times(torch, fn, iters: int = 20) -> dict:
+    """What one call of ``fn`` costs the card and the host:
+    ``device_ms``, the device time per call summed over every CUDA kernel
+    it issues (torch.profiler over ``iters`` back-to-back calls);
+    ``kernels_per_call``; and ``host_ms``, the host's time to enqueue one
+    call (100 calls without a synchronize).  A kernel of ~0.01-0.02 ms
+    behind a ~0.03 ms Python wrapper is host-bound under ``time_ms``, so
+    ``device_ms`` is the number that judges the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fn()
+    host_ms = (time.perf_counter() - t0) / 100 * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel, count = {}, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA or not e.count:
+            continue
+        dt = getattr(e, "device_time_total", None)
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.split("<")[0].split("::")[-1].split()[-1]
+        by_kernel[name] = by_kernel.get(name, 0.0) + (
+            e.cuda_time_total if dt is None else dt) / iters / 1e3
+        count += e.count
+    check(count > 0, "torch.profiler saw the call's CUDA kernels")
+    return dict(device_ms=sum(by_kernel.values()), by_kernel=by_kernel,
+                kernels_per_call=count / iters, host_ms=host_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -482,12 +525,63 @@ def _bits_equal(np, a, b):
     return a.view(np.int32) == b.view(np.int32)
 
 
+HADAMARD_TILE_ROWS = 32      # hadamard.cu's row tile at D = 128
+
+
+def hadamard_main_calls(torch, dev, ops):
+    """{"hadamard f32": call, "hadamard bf16": call}: ``hadamard_op`` at
+    the pipeline's shape (one request's K, (L·Hkv·SEQ, D) of llama3.1-8b),
+    f32 and bf16 in, f32 out, through ``ops``: the module of this tree or
+    of another checkout.  Also returns the f32 input."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(32 * 8 * SEQ, 128, generator=gen, device=dev) * 3
+    xb = x.to(torch.bfloat16)
+    return {"hadamard f32": lambda: ops.hadamard_op(x, out_dtype=x.dtype),
+            "hadamard bf16": lambda: ops.hadamard_op(
+                xb, out_dtype=x.dtype)}, x
+
+
+def clock_under_load(torch, fn, seconds: float = 2.0) -> dict:
+    """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` reads
+    halfway through ``seconds`` of back-to-back calls of ``fn``: whether
+    the card held its clock under the load.  Run after the last
+    torch.profiler window: on the card, torch.profiler saw no CUDA kernel
+    in a window that followed this query."""
+    import threading
+
+    reading = {}
+
+    def query():
+        time.sleep(seconds / 2)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split(",")
+        reading.update(sm_clock_mhz=float(out[0]), power_w=float(out[1]))
+
+    t = threading.Thread(target=query)
+    t0 = time.perf_counter()
+    t.start()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+    t.join()
+    check(set(reading) == {"sm_clock_mhz", "power_w"}, "nvidia-smi clocks")
+    return reading
+
+
 def hadamard_kernel_phase(torch, dev):
     """hadamard at the pipeline's shape (one request's K, (L·Hkv·SEQ, D)),
-    f32 and bf16 in, at D 64 and 256 and at ragged T, against its plain
-    version (max |diff| <= 1e-5 of the row's L2 norm) and, at the main
-    shape, against numpy's ``x @ h`` on the host (the share of bit-equal
-    outputs).  Returns (results entry, outputs bit-equal to numpy)."""
+    f32 and bf16 in, and at D 4, 8, 64, 256 and 512, T 1, 77, 4097 and one
+    below, at and above a whole row tile, against its plain version (max
+    |diff| <= 1e-5 of the row's L2 norm) and against numpy's ``x @ h`` on
+    the host: bit for bit at D 64, 128 and 256 (one in-order FMA chain per
+    output, a BLAS micro-kernel's order; numpy takes a vector routine for
+    one row, so T = 1 is held against the product of two copies), the
+    share of bit-equal outputs recorded at D 4, 8 and 512 (BLAS may block
+    K there); bf16 out must be the f32 result rounded.  Returns (results
+    entry, the main shape bit-equal to numpy)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.transforms import hadamard_matrix
@@ -501,12 +595,18 @@ def hadamard_kernel_phase(torch, dev):
 
     def data(t, dd, dt):
         x = torch.randn(t, dd, generator=gen, device=dev) * 3
-        x[:, 5] *= 40          # an outlier channel, which the rotation spreads
+        x[:, 1] *= 40          # an outlier channel, which the rotation spreads
         return x.to(dt)
 
+    tile = HADAMARD_TILE_ROWS
+    cases = [(t_main, d, f32), (t_main, d, bf16), (t_main, 64, f32),
+             (t_main, 256, bf16), (4097, d, f32), (77, 256, bf16),
+             (1, d, f32), (tile - 1, d, bf16), (tile, d, f32),
+             (tile + 1, d, f32), (4097, 4, f32), (77, 4, bf16),
+             (4097, 8, bf16), (1, 8, f32), (4097, 512, f32),
+             (77, 512, bf16), (1, 512, f32)]
     worst, host_exact = 0.0, True
-    for t, dd, dt in [(t_main, d, f32), (t_main, d, bf16), (t_main, 64, f32),
-                      (t_main, 256, bf16), (4097, d, f32), (77, 256, bf16)]:
+    for t, dd, dt in cases:
         x = data(t, dd, dt)
         got = ops.hadamard_op(x, out_dtype=f32)
         want = ref.hadamard_ref(x, f32)
@@ -514,35 +614,49 @@ def hadamard_kernel_phase(torch, dev):
         rel = float((diff.amax(dim=1)
                      / x.float().norm(dim=1).clamp_min(1e-30)).max())
         worst = max(worst, float(diff.max()))
+        rounded = bool(torch.equal(ops.hadamard_op(x, out_dtype=bf16),
+                                   got.to(bf16)))
+        xh = x.float().cpu().numpy()
+        hm = hadamard_matrix(dd)
+        host = (np.concatenate([xh, xh]) @ hm)[:1] if t == 1 else xh @ hm
+        g = got.cpu().numpy()
+        same = _bits_equal(np, g, host)
         line = (f"hadamard T={t} D={dd} {str(dt)[6:]} in: max|diff| / row "
-                f"norm {rel:.3g} against the plain version (tolerance 1e-5)")
-        check(rel <= 1e-5, f"hadamard T={t} D={dd} {dt}")
-        if t == t_main and dd == d:
-            host = x.float().cpu().numpy() @ hadamard_matrix(dd)
-            g = got.cpu().numpy()
-            same = _bits_equal(np, g, host)
-            line += (f"; bit-equal to numpy x @ h on the host: "
-                     f"{float(same.mean())}")
-            if not same.all():
-                host_exact = False
-                i, j = (int(a[0]) for a in np.nonzero(~same))
-                line += (f" (first difference at [{i}, {j}]: kernel "
-                         f"{g[i, j]!r}, numpy {host[i, j]!r})")
+                f"norm {rel:.3g} against the plain version (tolerance "
+                f"1e-5); bf16 out = f32 out rounded: {rounded}; bit-equal "
+                f"to numpy x @ h on the host: {float(same.mean())}")
+        if not same.all():
+            i, j = (int(a[0]) for a in np.nonzero(~same))
+            line += (f" (first difference at [{i}, {j}]: kernel "
+                     f"{g[i, j]!r}, numpy {host[i, j]!r})")
         print(line)
-    x = data(t_main, d, f32)
-    xb = x.to(bf16)
+        check(rel <= 1e-5 and rounded, f"hadamard T={t} D={dd} {dt}")
+        if dd in (64, 128, 256):
+            check(bool(same.all()), f"hadamard T={t} D={dd} {dt} = numpy")
+        if t == t_main and dd == d:
+            host_exact = host_exact and bool(same.all())
+    calls, x = hadamard_main_calls(torch, dev, ops)
     h = ref.hadamard_table(d, dev)
     n = x.numel()
-    nbytes = 2 * n * 4 + d * d * 4
+    nbytes = 2 * n * 4
     entry = dict(
         max_abs_err=worst,
-        ms=time_ms(torch, lambda: ops.hadamard_op(x, out_dtype=f32)),
+        ms=time_ms(torch, calls["hadamard f32"]),
         plain_ms=time_ms(torch, lambda: ref.hadamard_ref(x, f32)),
         library_ms=time_ms(torch, lambda: torch.matmul(x, h)),
-        bf16_in_ms=time_ms(torch, lambda: ops.hadamard_op(xb,
-                                                          out_dtype=f32)),
+        bf16_in_ms=time_ms(torch, calls["hadamard bf16"]),
         bytes_bound_ms=nbytes / PEAK_BYTES_S * 1e3)
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, 2 * n * d)
+    entry.update(device_times(torch, calls["hadamard f32"]))
+    entry["bf16_in_device_ms"] = device_times(
+        torch, calls["hadamard bf16"])["device_ms"]
+    entry["library_device_ms"] = device_times(
+        torch, lambda: torch.matmul(x, h))["device_ms"]
+    print(f"hadamard at the main shape: {entry['device_ms']:.4f} ms of "
+          f"device time per call ({entry['kernels_per_call']:g} CUDA "
+          f"kernels), bf16 in {entry['bf16_in_device_ms']:.4f} ms, "
+          f"torch.matmul {entry['library_device_ms']:.4f} ms; host "
+          f"enqueue {entry['host_ms']:.4f} ms per call")
     return entry, host_exact
 
 
@@ -550,6 +664,29 @@ def hadamard_kernel_phase(torch, dev):
 # Phase 2, continued: decode_attention, dense quantized flash-decode
 # ---------------------------------------------------------------------------
 SLOT_LENS = (SEQ + DECODE_TOKENS + 2, 1040, 600, 17, 1, 1031)
+DECODE_SPLIT = 64            # decode_attention.cu's kSplit
+# split - 1, split, split + 1, a last split of one position, two full
+# splits, one position
+SPLIT_EDGE_LENS = (63, 64, 65, 129, 128, 1)
+
+
+def decode_main_call(torch, dev, ops):
+    """{"decode_attention": call}: ``decode_attention_op`` at case (a)'s
+    shape (6 slots, Hkv 8, Gq 4, D 128, S 1056), int8 group 64, f32 q,
+    block_s 32, every position visible, through ``ops``: the module of
+    this tree or of another checkout.  Also returns the call's inputs."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s = SLOT_LENS[0]
+    q = torch.randn(SLOTS, 8, 4, 128, generator=gen, device=dev)
+    kv = []
+    for _ in range(2):
+        kv += list(ref.quant_pack_ref(torch.randn(
+            SLOTS, 8, s, 128, generator=gen, device=dev), 8, GROUP))
+    args = [q] + kv
+    return {"decode_attention": lambda: ops.decode_attention_op(
+        *args, bits=8, group=GROUP, block_s=32)}, args
 
 
 def bf16_close(torch, got, want, atol: float = 2e-5):
@@ -572,10 +709,14 @@ def decode_attention_kernel_phase(torch, dev):
     (c) tests/test_kernels.py's three shapes at a static length; (d) a
     32,768-position context; (e) Gq 48 over one KV head; (f) paged
     attention over a block table against decode_attention over the
-    gathered view.  Tolerances: f32 q atol 2e-5 + rtol 1e-4; bf16 q 1 bf16
-    ulp (atol 2e-5 below 2.6e-3, see ``bf16_close``).  The launch counts
-    are set to 0 before the cases and read after them.  Returns (results
-    entry, launches)."""
+    gathered view; (g) the edges of the kernel's split of the positions
+    into blocks of 64: lengths 63, 64 and 65, a slot whose last split holds
+    one position (129), and a static length of 65.  Every case is launched
+    twice and the two results must be equal bit for bit (no atomics, one
+    combine order).  Tolerances: f32 q atol 2e-5 + rtol 1e-4; bf16 q 1
+    bf16 ulp (atol 2e-5 below 2.6e-3, see ``bf16_close``).  The launch
+    counts are set to 0 before the cases and read after them.  Returns
+    (results entry, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref, reset_launches
 
@@ -618,6 +759,7 @@ def decode_attention_kernel_phase(torch, dev):
 
     s_main = SLOT_LENS[0]
     slot_lens = torch.tensor(SLOT_LENS, dtype=torch.int32, device=dev)
+    edge_lens = torch.tensor(SPLIT_EDGE_LENS, dtype=torch.int32, device=dev)
     cases = [  # label, (B, Hkv, Gq, S, D), bits, group, block_s, kv_len, q
         *[(f"(a) llama3.1-8b slots int{bits} {str(dt)[6:]} q",
            (SLOTS, hkv, gq, s_main, d), bits, GROUP, 32, slot_lens, dt)
@@ -633,21 +775,31 @@ def decode_attention_kernel_phase(torch, dev):
          32000, f32),
         *[(f"(e) Gq 48 {str(dt)[6:]} q", (1, 1, 48, 2048, d), 8, GROUP, 256,
            None, dt) for dt in (f32, bf16)],
+        *[(f"(g) split edges int{bits} {str(dt)[6:]} q",
+           (SLOTS, hkv, gq, s_main, d), bits, GROUP, 32, edge_lens, dt)
+          for bits, dt in ((8, f32), (4, bf16))],
+        ("(g) split edges, static length 65", (2, hkv, gq, 256, d), 8,
+         GROUP, 64, DECODE_SPLIT + 1, f32),
     ]
     reset_launches()
     for label, shape, bits, group, blk, kv_len, dt in cases:
         args = case(*shape, bits, group, dt)
         got = ops.decode_attention_op(*args, bits=bits, group=group,
                                       kv_len=kv_len, block_s=blk)
-        hold(label, got, plain(args, bits, group, kv_len))
-        if label.startswith("(a)") and bits == 8 and dt == f32:
+        again = ops.decode_attention_op(*args, bits=bits, group=group,
+                                        kv_len=kv_len, block_s=blk)
+        check(bool(torch.equal(got, again)),
+              f"decode_attention {label}: two launches bit-equal")
+        hold(label + ", two launches bit-equal", got,
+             plain(args, bits, group, kv_len))
+        if isinstance(kv_len, torch.Tensor) and bits == 8 and dt == f32:
             rows = all(torch.equal(ops.decode_attention_op(
                 *[t[i:i + 1] for t in args], bits=bits, group=group,
                 kv_len=n, block_s=blk)[0], got[i])
-                for i, n in enumerate(SLOT_LENS))
-            print(f"decode_attention (a): each slot alone at its length "
-                  f"equals its row: {rows}")
-            check(rows, "decode_attention rows")
+                for i, n in enumerate(kv_len.tolist()))
+            print(f"decode_attention {label[:3]}: each slot alone at its "
+                  f"length equals its row: {rows}")
+            check(rows, f"decode_attention {label[:3]} rows")
 
     # (f) paged attention over a block table = dense over the gathered view
     pps = s_main // PAGE_SIZE
@@ -671,22 +823,30 @@ def decode_attention_kernel_phase(torch, dev):
     launches = ops.decode_attention_op.launches
 
     # timed at (a)'s shape, int8, f32 q, every position visible
-    q, kc, ks, vc, vs = case(SLOTS, hkv, gq, s_main, d, 8, GROUP, f32)
+    calls, (q, kc, ks, vc, vs) = decode_main_call(torch, dev, ops)
+    call = calls["decode_attention"]
     kd = ref.dequantize_ref(kc, ks, GROUP, bf16)
     vd = ref.dequantize_ref(vc, vs, GROUP, bf16)
     qs = q.to(bf16).reshape(SLOTS, hkv * gq, 1, d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = (lambda: sdpa(qs, kd, vd, enable_gqa=True))
     nbytes = sum(t.numel() * t.element_size() for t in (q, kc, ks, vc, vs))
     nbytes += q.numel() * 4                                   # the output
     entry = dict(
         max_abs_err=worst,
-        ms=time_ms(torch, lambda: ops.decode_attention_op(
-            q, kc, ks, vc, vs, bits=8, group=GROUP, block_s=32)),
+        ms=time_ms(torch, call),
         plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(
             q, kc, ks, vc, vs, GROUP)),
-        library_ms=time_ms(torch, lambda: sdpa(qs, kd, vd, enable_gqa=True)))
+        library_ms=time_ms(torch, library))
     entry["bound_ms"], entry["bound_by"] = bound(
         nbytes, 4 * SLOTS * hkv * gq * d * s_main)
+    entry.update(device_times(torch, call))
+    entry["library_device_ms"] = device_times(torch, library)["device_ms"]
+    print(f"decode_attention at case (a): {entry['device_ms']:.4f} ms of "
+          f"device time per call ({entry['kernels_per_call']:g} CUDA "
+          f"kernels: {entry['by_kernel']}), SDPA "
+          f"{entry['library_device_ms']:.4f} ms; host enqueue "
+          f"{entry['host_ms']:.4f} ms per call")
     return entry, launches
 
 
@@ -890,11 +1050,15 @@ def attention_main_calls(torch, dev, ops):
     return calls
 
 
-def attention_main_times(torch, dev, ops):
-    """Times of the arena attention entries at the main path's shapes
-    (``attention_main_calls``)."""
-    return {w: time_ms(torch, fn)
-            for w, fn in attention_main_calls(torch, dev, ops).items()}
+def main_times(torch, dev, ops):
+    """``time_ms`` of the arena attention entries at the main path's
+    shapes (``attention_main_calls``), decode_attention at case (a)
+    (``decode_main_call``) and hadamard at the pipeline's shape, f32 and
+    bf16 in (``hadamard_main_calls``), through ``ops``."""
+    calls = dict(attention_main_calls(torch, dev, ops))
+    calls.update(decode_main_call(torch, dev, ops)[0])
+    calls.update(hadamard_main_calls(torch, dev, ops)[0])
+    return {k: time_ms(torch, fn) for k, fn in calls.items()}
 
 
 def attention_phase_times(torch, dev):
@@ -946,10 +1110,11 @@ def attention_phase_times(torch, dev):
 
 
 def compare_with(torch, baseline: Path):
-    """The arena attention entries at the main path's shapes, timed from
-    ``baseline`` (a checkout of another commit, e.g. ``git archive`` of
-    the parent) and from this tree, in turns (baseline, this, this,
-    baseline), each in a process of its own on this card."""
+    """The arena attention entries, decode_attention and hadamard at the
+    main path's shapes (``main_times``), timed from ``baseline`` (a
+    checkout of another commit, e.g. ``git archive`` of the parent) and
+    from this tree, in turns (baseline, this, this, baseline), each in a
+    process of its own on this card."""
     runs = []
     for src in (baseline / "src", ROOT / "src", ROOT / "src",
                 baseline / "src"):
@@ -963,7 +1128,8 @@ def compare_with(torch, baseline: Path):
     for w in runs[0]:
         base = [runs[0][w], runs[3][w]]
         this = [runs[1][w], runs[2][w]]
-        print(f"arena attention {w} at the main shapes: this tree "
+        what = w if w[0].isalpha() else f"arena attention {w}"
+        print(f"{what} at the main shapes: this tree "
               f"{this[0]:.4f} / {this[1]:.4f} ms, {baseline} "
               f"{base[0]:.4f} / {base[1]:.4f} ms (ratio "
               f"{sum(this) / sum(base):.4f})")
@@ -1560,8 +1726,9 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="a checkout of another commit whose arena attention "
-                         "kernels are timed beside this tree's, in turns")
+                    help="a checkout of another commit whose arena attention, "
+                         "decode_attention and hadamard kernels are timed "
+                         "beside this tree's, in turns")
     ap.add_argument("--attention-times", type=Path, default=None,
                     help=argparse.SUPPRESS)   # one turn of --baseline
     args = ap.parse_args(argv)
@@ -1573,7 +1740,7 @@ def main(argv) -> int:
     if args.attention_times is not None:
         sys.path.insert(0, str(args.attention_times))
         from repro_torch.kernels import ops
-        print(json.dumps(attention_main_times(torch, dev, ops)))
+        print(json.dumps(main_times(torch, dev, ops)))
         return 0
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -1679,6 +1846,12 @@ def main(argv) -> int:
     launches["hadamard"] = counts["hadamard_op"]
     print(f"phase 5 with the wire check: {time.perf_counter() - t5:.2f} s "
           f"wall")
+    from repro_torch.kernels import ops
+    results["hadamard"].update(clock_under_load(
+        torch, hadamard_main_calls(torch, dev, ops)[0]["hadamard f32"]))
+    print(f"hadamard at the main shape, back to back: SM clock "
+          f"{results['hadamard']['sm_clock_mhz']:g} MHz at "
+          f"{results['hadamard']['power_w']:g} W")
 
     meta = {
         "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",

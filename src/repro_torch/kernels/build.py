@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry points per source: name -> argtypes (every one returns the
 # launch's cudaError_t as an int).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -49,10 +50,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                          _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _I, _I, _F, _P)},
     "decode_attention": {
-        "decode_attention": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+        "decode_attention": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I,
                              _I, _I, _I, _I, _I, _I, _F, _P)},
     "hadamard": {
-        "hadamard": (_P, _I, _P, _P, _I, _I, _I, _P)},
+        "hadamard": (_P, _I, _F, _P, _I, _L, _I, _P)},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

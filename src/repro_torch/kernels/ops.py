@@ -77,9 +77,11 @@ def _launch(lib: str, fn: str, device: torch.device, *args) -> None:
 #     B's 16-channel slices, a tile's q in shared memory;
 #   * an empty block table (PPS < 1);
 #   * pools not 16-byte aligned (vector loads).
-# decode_attention walks the positions in chunks and gives each lane four
-# channels: D a multiple of 4, at most 512.
+# decode_attention splits each slot's positions into blocks of
+# _DECODE_SPLIT and gives each thread four channels of p * v: D a multiple
+# of 4, at most 512.
 _SPLIT_MIN_CHUNK = 16      # paged_split.cuh's kMinChunk
+_DECODE_SPLIT = 64         # decode_attention.cu's kSplit
 
 
 def _check_paged_shape(name: str, rows: int, d: int, pps: int) -> None:
@@ -159,9 +161,6 @@ def dequant_unpack_op(codes: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-_DECODE_MAX_CHUNK = 256     # decode_attention.cu's kMaxChunk
-
-
 def decode_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
                         k_scale: torch.Tensor, v_codes: torch.Tensor,
                         v_scale: torch.Tensor, bits: int = 8, group: int = 64,
@@ -171,9 +170,11 @@ def decode_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
     kernel's interface: q (B, Hkv, Gq, D) f32/bf16; codes (B, Hkv, S, D)
     int8 or (B, Hkv, S, D/2) uint8 nibbles; scales (B, Hkv, S, D/group)
     f32.  ``kv_len``: None (= S), an int for every slot, or a (B,) int32
-    tensor of per-slot lengths (each >= 1).  ``block_s`` positions per
-    online-softmax step (the kernel takes at most 256 at a time); S must
-    be a multiple of ``min(block_s, S)``.  Returns (B, Hkv, Gq, D) in q's
+    tensor of per-slot lengths (each >= 1).  ``block_s`` is the Pallas
+    kernel's step, validated only (S must be a multiple of
+    ``min(block_s, S)``): the CUDA kernel splits the positions into fixed
+    blocks of 64 and combines the splits in a second launch, through an
+    f32 workspace allocated here.  Returns (B, Hkv, Gq, D) in q's
     dtype."""
     if q.dim() != 4 or k_codes.dim() != 4:
         raise ValueError(f"decode_attention: q{tuple(q.shape)} "
@@ -207,13 +208,15 @@ def decode_attention_op(q: torch.Tensor, k_codes: torch.Tensor,
     if d % 4 or d > 512 or any(t.data_ptr() % 4 for t in (k_codes, v_codes)):
         raise ValueError(f"decode_attention: D={d} (a multiple of 4, at most "
                          f"512), codes 4-byte aligned")
+    ws = torch.empty(b * hkv * gq * -(-s // _DECODE_SPLIT) * (d + 2),
+                     dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     _launch("decode_attention", "decode_attention", dev, q.data_ptr(),
             int(q.dtype == torch.bfloat16), k_codes.data_ptr(),
             k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
             None if lens is None else lens.data_ptr(), static_len,
-            out.data_ptr(), b, hkv, gq, s, d, bits, group,
-            min(bs, _DECODE_MAX_CHUNK), 1.0 / math.sqrt(d))
+            ws.data_ptr(), out.data_ptr(), b, hkv, gq, s, d, bits, group,
+            1.0 / math.sqrt(d))
     decode_attention_op.launches += 1
     return out
 
@@ -420,7 +423,9 @@ def hadamard_op(x: torch.Tensor, out_dtype: Optional[torch.dtype] = None,
     """Blockwise Hadamard transform, the Pallas kernel's function:
     x (T, D) bf16/f32 @ H_D with f32 accumulation, out ``out_dtype``
     (f32 or bf16; default x's dtype).  D is a power of two (the kernel
-    takes 4 <= D <= 512); T is any length, with no block multiple."""
+    takes 4 <= D <= 512); T is any length, with no block multiple.  The
+    kernel reads no table: it takes the host table's entry c = H[0][0]
+    and derives each entry's sign, +c or -c, from popcount(k & j)."""
     if x.dim() != 2 or x.shape[1] < 1 or x.shape[1] & (x.shape[1] - 1):
         raise ValueError(f"hadamard: x{tuple(x.shape)}, D must be a power "
                          f"of two")
@@ -432,11 +437,11 @@ def hadamard_op(x: torch.Tensor, out_dtype: Optional[torch.dtype] = None,
                                               torch.bfloat16):
         raise ValueError(f"hadamard: D={d} out_dtype={out_dtype}")
     _check(x, "x", (torch.float32, torch.bfloat16), x.device)
-    h = ref.hadamard_table(d, x.device)
+    _check_aligned("hadamard", x=x)
     out = torch.empty((t, d), dtype=out_dtype, device=x.device)
     _launch("hadamard", "hadamard", x.device, x.data_ptr(),
-            int(x.dtype == torch.bfloat16), h.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), t, d)
+            int(x.dtype == torch.bfloat16), ref.hadamard_entry(d),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), t, d)
     hadamard_op.launches += 1
     return out
 

@@ -7,6 +7,7 @@ CPU tensor; the tests hold them against the JAX package's oracles, and
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -91,6 +92,13 @@ def hadamard_table(d: int, device) -> torch.Tensor:
         h = torch.from_numpy(hadamard_matrix(d)).to(device)
         _HADAMARD[key] = h
     return h
+
+
+@functools.lru_cache(maxsize=None)
+def hadamard_entry(d: int) -> float:
+    """The magnitude c of every entry of the host's f32 (d, d) Hadamard
+    table: entry (k, j) is c times (-1) ** popcount(k & j)."""
+    return float(hadamard_matrix(d)[0, 0])
 
 
 def hadamard_ref(x: torch.Tensor,

@@ -15,8 +15,10 @@ below 2.6e-3 in magnitude, whose last bits the f32 sums' order sets); the
 arena entries' m and l within rtol 1e-5 and their bf16 output within 2
 bf16 ulps; hadamard within 1e-5 of each row's L2
 norm against its plain version (cuBLAS sums in another order) and bit for
-bit against numpy's ``x @ h`` on the host (one in-order FMA chain per
-output, a BLAS micro-kernel's order).
+bit against numpy's ``x @ h`` on the host at D 64, 128 and 256 (one
+in-order FMA chain per output, a BLAS micro-kernel's order).  The kernels
+that split work across blocks (the attention kernels) are launched twice
+on their edge cases, and the two results must be equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -388,6 +390,9 @@ def _hold(got, want):
 
 
 _SLOT_LENS = (1056, 1040, 600, 17, 1, 1031)   # chip_smoke.py's case (a)
+# decode_attention.cu splits the positions into blocks of 64: split - 1,
+# split, split + 1, a last split of one position, two full splits, one
+_EDGE_LENS = (63, 64, 65, 129, 128, 1)
 
 
 @pytest.mark.parametrize("case", [
@@ -402,21 +407,32 @@ _SLOT_LENS = (1056, 1040, 600, 17, 1, 1031)   # chip_smoke.py's case (a)
                                        (3, 1, 2, 128, 1024, 128, 256)]],
     (1, 8, 4, 32768, 128, 4, 64, 256, 32000, "f32"),   # long context
     (1, 1, 48, 2048, 128, 8, 64, 256, None, "bf16"),   # granite-20b Gq 48
+    (6, 8, 4, 1056, 128, 8, 64, 32, "edges", "f32"),   # the split's edges
+    (6, 8, 4, 1056, 128, 4, 64, 32, "edges", "bf16"),
+    (2, 8, 4, 256, 128, 8, 64, 64, 65, "f32"),
+    # rows that are no whole 16-byte chunk, scales left in device memory
+    (2, 2, 3, 100, 12, 8, 4, 100, None, "f32"),
+    (2, 2, 3, 100, 40, 4, 8, 100, 99, "f32"),
+    (1, 2, 5, 200, 512, 4, 1, 200, 150, "bf16"),
 ])
 def test_decode_attention(cuda, case):
+    """Each case launched twice (the results equal bit for bit: no atomics,
+    one combine order), against the plain version; with a (B,) length
+    vector, each row alone at its length equals its row of the batch."""
     b, hkv, gq, s, d, bits, group, block_s, kv_len, dt = case
     q, kc, ks, vc, vs = _dense_case(
         cuda, s + gq + bits, b, hkv, gq, s, d, bits, group,
         torch.float32 if dt == "f32" else torch.bfloat16)
-    if kv_len == "slots":
-        kv_len = torch.tensor(_SLOT_LENS, dtype=torch.int32, device=cuda)
+    if kv_len in ("slots", "edges"):
+        kv_len = torch.tensor(_SLOT_LENS if kv_len == "slots" else _EDGE_LENS,
+                              dtype=torch.int32, device=cuda)
     before = decode_attention_op.launches
-    got = decode_attention_op(q, kc, ks, vc, vs, bits=bits, group=group,
-                              kv_len=kv_len, block_s=block_s)
-    assert decode_attention_op.launches == before + 1
+    got = _two_launches(decode_attention_op, q, kc, ks, vc, vs, bits=bits,
+                        group=group, kv_len=kv_len, block_s=block_s)
+    assert decode_attention_op.launches == before + 2
     _hold(got, _decode_want(q, kc, ks, vc, vs, bits, group, kv_len))
     if isinstance(kv_len, torch.Tensor):  # each row alone, at its length
-        for i, n in enumerate(_SLOT_LENS):
+        for i, n in enumerate(kv_len.tolist()):
             one = decode_attention_op(
                 q[i:i + 1], kc[i:i + 1], ks[i:i + 1], vc[i:i + 1],
                 vs[i:i + 1], bits=bits, group=group, kv_len=n,
@@ -517,14 +533,26 @@ def test_speculative_runtime_launches_the_verify_kernel(cuda):
         assert dw.page_table.free_pages == dw.page_table.num_pages - 1
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("t", [1, 77, 4096])
+def _hadamard_tile_rows(d: int) -> int:
+    """hadamard.cu's rows per tile: 256 threads, 8 columns a thread (4 at
+    D = 4), 2 rows a thread."""
+    return 256 // (d // min(d, 8)) * 2
+
+
+@pytest.mark.parametrize("d", [4, 8, 64, 128, 256, 512])
+@pytest.mark.parametrize("t", [1, 77, 4096, "tile-1", "tile+1"])
 def test_hadamard(cuda, d, t):
+    """Against the plain version within 1e-5 of each row's norm, and bit
+    for bit against numpy's ``x @ h`` on the host at D 64, 128 and 256
+    (at D 4, 8 and 512 BLAS may block or vectorise K otherwise); bf16 out
+    is the f32 result rounded, for f32 and bf16 in."""
     from repro_torch.core.transforms import hadamard_matrix
 
+    if isinstance(t, str):
+        t = _hadamard_tile_rows(d) + (1 if t == "tile+1" else -1)
     gen = torch.Generator(device=cuda).manual_seed(t + d)
     x = torch.randn(t, d, generator=gen, device=cuda) * 3
-    x[:, 3] *= 40                                  # an outlier channel
+    x[:, 3 % d] *= 40                              # an outlier channel
     h = hadamard_matrix(d)
     for dt in (torch.float32, torch.bfloat16):
         xd = x.to(dt)
@@ -538,7 +566,10 @@ def test_hadamard(cuda, d, t):
         # a single row: hold that row against its product as a matrix
         xh = xd.float().cpu().numpy()
         host = (np.concatenate([xh, xh]) @ h)[:t] if t == 1 else xh @ h
-        np.testing.assert_array_equal(got.cpu().numpy(), host)
+        if d in (64, 128, 256):
+            np.testing.assert_array_equal(got.cpu().numpy(), host)
+        assert torch.equal(hadamard_op(xd, out_dtype=torch.bfloat16),
+                           got.to(torch.bfloat16))
         # out_dtype defaults to x's: bf16 out is the f32 result rounded
         assert torch.equal(hadamard_op(xd), got.to(dt))
         # H is symmetric and orthonormal: the transform is an involution
