@@ -10,11 +10,15 @@ is caught:
    with nvcc (one process per source, in parallel) into ``build/kernels``.
 2. Kernels: on the card, hold each kernel against its plain PyTorch
    version at the main path's shapes (plus int4, ragged-T, staircase and
-   scratch-page cases; the Hadamard kernel also bit for bit against
-   numpy's ``x @ h`` on the host at D 64, 128 and 256), and time it, its
-   plain version and, where one PyTorch call computes the same function,
-   that call; decode_attention and hadamard also by their device time per
-   call from torch.profiler and the host's enqueue time per call.
+   scratch-page cases; quant_pack and dequant_unpack bit for bit, also
+   on ``quant_boundary``'s rows and the scalar path's shapes, quant_pack
+   also against the host quantizer; the Hadamard kernel also bit for bit
+   against numpy's ``x @ h`` on the host at D 64, 128 and 256), and time
+   it, its plain version and, where one PyTorch call computes the same
+   function, that call; decode_attention, hadamard, quant_pack and
+   dequant_unpack also by their device time per call from torch.profiler
+   and the host's enqueue time per call (the last two in six variants,
+   each beside its byte bound).
    ``decode_attention``, which no serving path calls, is driven here
    through its public entry: llama3.1-8b's slot-arena decode at full
    width, the harness and test shapes, 32,768 positions, Gq 48, and the
@@ -27,15 +31,17 @@ is caught:
    chunk), each case launched twice and bit-equal, and each arena entry's
    two CUDA kernels (phase A, phase B) are timed by torch.profiler.  With
    ``--baseline DIR`` (a checkout of another commit, e.g. the parent's
-   ``git archive``), the arena attention entries, decode_attention and
-   hadamard of DIR and of this tree are timed at the main shapes in
-   turns.
+   ``git archive``), the arena attention entries, decode_attention,
+   hadamard, quant_pack and dequant_unpack of DIR and of this tree are
+   timed at the main shapes in turns.
 3. Runtime: serve the pinned 8-request pattern PD-separated on the paged
    arena of ``llama3.1-8b`` at full width with seeded random bf16
    weights, count each kernel's launches on that run, check the paged
-   kernel path against the plain path on one full-width decode, and time
+   kernel path against the plain path on one full-width decode, time
    one full-width decode step (host enqueue, wall, device busy; with
-   ``--baseline``, also with DIR's paged_attention library in turns).
+   ``--baseline``, also with DIR's paged_attention library in turns),
+   and split one cold request's compress and decompress stages into the
+   kernel, the torch ops around it, the copies and the host codec.
 4. Speculative runtime: serve the same pattern the same way with
    speculation, ``spec_k=4``: first with n-gram lookahead (random weights
    repeat no n-gram of their output, so it offers no drafts: recorded,
@@ -137,12 +143,15 @@ def bf16_ulps(torch, a, b) -> int:
 
 def device_times(torch, fn, iters: int = 20) -> dict:
     """What one call of ``fn`` costs the card and the host:
-    ``device_ms``, the device time per call summed over every CUDA kernel
-    it issues (torch.profiler over ``iters`` back-to-back calls);
-    ``kernels_per_call``; and ``host_ms``, the host's time to enqueue one
-    call (100 calls without a synchronize).  A kernel of ~0.01-0.02 ms
-    behind a ~0.03 ms Python wrapper is host-bound under ``time_ms``, so
-    ``device_ms`` is the number that judges the kernel."""
+    ``device_ms``, the device time per call: each CUDA kernel's mean time
+    a launch times its launches a call, summed (torch.profiler over
+    ``iters`` back-to-back calls; the profiler on the H100 machine has
+    dropped a launch from a window, 19 of 20 seen, which a window's total
+    over the calls would count as a faster call); ``kernels_per_call``;
+    and ``host_ms``, the host's time to enqueue one call (100 calls
+    without a synchronize).  A kernel of ~0.01-0.02 ms behind a ~0.03 ms
+    Python wrapper is host-bound under ``time_ms``, so ``device_ms`` is
+    the number that judges the kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,12 +175,294 @@ def device_times(torch, fn, iters: int = 20) -> dict:
         dt = getattr(e, "device_time_total", None)
         name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
         name = name.split("<")[0].split("::")[-1].split()[-1]
+        launches = round(e.count / iters)
         by_kernel[name] = by_kernel.get(name, 0.0) + (
-            e.cuda_time_total if dt is None else dt) / iters / 1e3
-        count += e.count
+            e.cuda_time_total if dt is None else dt) / e.count \
+            * launches / 1e3
+        count += launches
     check(count > 0, "torch.profiler saw the call's CUDA kernels")
     return dict(device_ms=sum(by_kernel.values()), by_kernel=by_kernel,
-                kernels_per_call=count / iters, host_ms=host_ms)
+                kernels_per_call=count, host_ms=host_ms)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: quant_pack and dequant_unpack
+# ---------------------------------------------------------------------------
+QUANT_T = 32 * 8 * SEQ       # one request's K or V of llama3.1-8b, (L·Hkv·S)
+QUANT_MAIN = ("quant_pack bf16 int8", "dequant_unpack int8 f32")
+_SHORT = {"torch.float32": "f32", "torch.bfloat16": "bf16"}
+
+
+def quant_pack_sass() -> None:
+    """The machine code of quant_pack's main variant (bf16 in, int8 out,
+    group 64: segments of 8 lanes, 2 groups a thread, 16 elements), from
+    ``cuobjdump -sass`` of the built library: its instruction count and
+    the instructions of the IEEE divide, one per element (MUFU.RCP, FFMA,
+    FCHK and the call of the slow path).  Static counts: the slow path is
+    in them but runs only where FCHK flags an operand."""
+    import collections
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("quant_pack SASS: no cuobjdump beside nvcc")
+        return
+    out = subprocess.run([str(tool), "-sass",
+                          str(build.library_path("quant_pack"))],
+                         capture_output=True, text=True, timeout=120).stdout
+    for body in re.split(r"\n\s+Function : ", out)[1:]:
+        if "quant_pack_vecI13__nv_bfloat16Li8ELi8ELi1ELi2E" not in body:
+            continue
+        ops = [op.split(".")[0] for op in re.findall(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)",
+            body)]
+        n = collections.Counter(ops)
+        print(f"quant_pack SASS, bf16 in, int8, group 64 (16 elements a "
+              f"thread): {len(ops)} instructions; MUFU {n['MUFU']}, FFMA "
+              f"{n['FFMA']}, FCHK {n['FCHK']}, CALL {n['CALL']}, F2I "
+              f"{n['F2I']}, LDG {n['LDG']}, STG {n['STG']}, SHFL "
+              f"{n['SHFL']}")
+        return
+    check(False, "quant_pack's main variant in its library")
+
+
+def quant_main_calls(torch, dev, ops):
+    """The streaming kernels at the main shape (QUANT_T, 128), group 64,
+    through ``ops`` (the module of this tree or of another checkout):
+    quant_pack from bf16 (phase 3's input) and f32 (phase 5's, after the
+    Hadamard stage) to int8 and from bf16 to int4; dequant_unpack from
+    int8 to f32 (phases 3 and 5), int4 to f32 and int8 to bf16.  Each call
+    takes the next of three input sets, so its inputs were last touched
+    two calls (> 170 MB of traffic) before and are not warm in the 50 MB
+    L2.  Returns ({name: call}, {name: bytes the call must move})."""
+    import itertools
+
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n = QUANT_T * 128
+    calls, nbytes = {}, {}
+
+    def rotate(fn, sets):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+
+    for dt, bits in ((torch.bfloat16, 8), (torch.float32, 8),
+                     (torch.bfloat16, 4)):
+        name = f"quant_pack {_SHORT[str(dt)]} int{bits}"
+        sets = [((torch.randn(QUANT_T, 128, generator=gen, device=dev)
+                  * 3).to(dt),) for _ in range(3)]
+        calls[name] = rotate(lambda x, bits=bits: ops.quant_pack_op(
+            x, bits=bits, group=GROUP), sets)
+        nbytes[name] = n * dt.itemsize + n * bits // 8 + n // GROUP * 4
+    for bits, od in ((8, torch.float32), (4, torch.float32),
+                     (8, torch.bfloat16)):
+        name = f"dequant_unpack int{bits} {_SHORT[str(od)]}"
+        sets = [ref.quant_pack_ref(torch.randn(
+            QUANT_T, 128, generator=gen, device=dev) * 3, bits, GROUP)
+            for _ in range(3)]
+        calls[name] = rotate(lambda c, s, bits=bits, od=od:
+                             ops.dequant_unpack_op(c, s, bits=bits,
+                                                   group=GROUP, out_dtype=od),
+                             sets)
+        nbytes[name] = n * bits // 8 + n // GROUP * 4 + n * od.itemsize
+    return calls, nbytes
+
+
+def quant_kernel_phase(torch, dev):
+    """quant_pack and dequant_unpack against their plain versions and
+    quant_pack also against the host quantizer
+    (``core/quantizers.py::group_quantize``, the wire contract), all bit
+    for bit: ``quant_boundary``'s rows (quotients on and one grid step off
+    a .5, where the reciprocal shortcut differs, at +-qmax, all zero,
+    below the scale floor) at bits 4 and 8, f32 and bf16 in, groups 32, 64
+    and 128, T 1, 77 and 4097, and tiled to the main shape; random rows at
+    the main shape; the scalar path's shapes (groups 2, 6 and 10, bf16
+    group 4, x or codes at an odd element offset, T 1); every code of
+    each quant_pack case restored by dequant_unpack to f32 and bf16; int4
+    nibble order.  Then each variant at the main shape
+    (``quant_main_calls``): ``time_ms``, device time per call, host
+    enqueue per call and share of its byte bound.  Returns the two
+    results entries."""
+    import numpy as np
+    from repro_torch.core.quantizers import group_quantize
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quant_boundary import (boundary_rows,
+                                                    reciprocal_differs)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {"quant_pack": 0.0, "dequant_unpack": 0.0}
+
+    def hold(x_np, xd, bits, group, label, host=True):
+        codes, scales = ops.quant_pack_op(xd, bits=bits, group=group)
+        c_ref, s_ref = ref.quant_pack_ref(xd, bits, group)
+        err = max(float((codes.int() - c_ref.int()).abs().max()),
+                  float((scales - s_ref).abs().max()))
+        worst["quant_pack"] = max(worst["quant_pack"], err)
+        check(err == 0.0, f"quant_pack {label} = plain")
+        if host:
+            t, d = x_np.shape
+            hc, hs, _ = group_quantize(x_np.reshape(1, t, d), bits,
+                                       "per_token", group, True)
+            c = ref.unpack_int4_ref(codes) if bits == 4 else codes
+            wire = (c.to(torch.int16) + (1 << (bits - 1))).to(torch.uint8)
+            check(np.array_equal(wire.cpu().numpy().reshape(hc.shape), hc)
+                  and np.array_equal(scales.to(torch.float16).cpu().numpy()
+                                     .reshape(hs.shape), hs),
+                  f"quant_pack {label} = host quantizer")
+        for od in (f32, bf16):
+            out = ops.dequant_unpack_op(codes, scales, bits=bits, group=group,
+                                        out_dtype=od)
+            want = ref.dequant_unpack_ref(codes, scales, bits, group, od)
+            e = float((out.float() - want.float()).abs().max())
+            worst["dequant_unpack"] = max(worst["dequant_unpack"], e)
+            check(torch.equal(out, want),
+                  f"dequant_unpack {label} -> {_SHORT[str(od)]}")
+        return codes, scales
+
+    # ---- boundary rows: bits x input type x group x T ----
+    for bits in (8, 4):
+        for dt in (f32, bf16):
+            traps = 0
+            for group in (32, 64, 128):
+                for t in (1, 77, 4097):
+                    x = boundary_rows(t, 128, group, bits, dt == bf16,
+                                      seed=t + group + bits)
+                    xg = x.reshape(-1, group)
+                    scale = np.maximum(np.abs(xg).max(1, keepdims=True)
+                                       / np.float32((1 << (bits - 1)) - 1),
+                                       np.float32(1e-8))
+                    traps += int(reciprocal_differs(xg, scale).sum())
+                    hold(x, torch.from_numpy(x).to(dev, dt), bits, group,
+                         f"boundary int{bits} {_SHORT[str(dt)]} group "
+                         f"{group} T={t}")
+            print(f"quant_pack boundary rows, int{bits}, {_SHORT[str(dt)]} "
+                  f"in, groups 32/64/128 x T 1/77/4097: bit-equal to the "
+                  f"plain version and the host quantizer ({traps} codes "
+                  f"where x * (1/scale) would differ); dequant_unpack of "
+                  f"their codes to f32 and bf16 bit-equal")
+    # ---- the main shape: boundary rows tiled, then random rows ----
+    for bits, dt in ((8, bf16), (8, f32), (4, bf16), (4, f32)):
+        x = np.tile(boundary_rows(4096, 128, GROUP, bits, dt == bf16,
+                                  seed=bits), (QUANT_T // 4096, 1))
+        hold(x, torch.from_numpy(x).to(dev, dt), bits, GROUP,
+             f"main shape boundary int{bits} {_SHORT[str(dt)]}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for bits, dt in ((8, bf16), (4, bf16), (8, f32), (4, f32)):
+        xd = (torch.randn(QUANT_T, 128, generator=gen, device=dev)
+              * 3).to(dt)
+        hold(None, xd, bits, GROUP,
+             f"main shape random int{bits} {_SHORT[str(dt)]}", host=False)
+    print(f"quant_pack at the main shape ({QUANT_T} x 128, group {GROUP}): "
+          f"boundary rows (tiled) and random rows, int8 and int4, f32 and "
+          f"bf16 in, bit-equal to the plain version (boundary rows also to "
+          f"the host quantizer); dequant_unpack to f32 and bf16 bit-equal")
+    # ---- the scalar path: shapes the vector path cannot take ----
+    for label, (group, d, t) in {"group 2": (2, 64, 33),
+                                 "group 6": (6, 96, 77),
+                                 "group 10": (10, 160, 5),
+                                 "odd offset": (GROUP, 128, 77),
+                                 "T=1": (GROUP, 128, 1),
+                                 "group 4": (4, 64, 9)}.items():
+        for bits in (8, 4):
+            for dt in (f32, bf16):
+                x = boundary_rows(t, d, group, bits, dt == bf16, seed=t)
+                xd = torch.from_numpy(x).to(dev, dt)
+                if label == "odd offset":
+                    flat = torch.zeros(t * d + 1, dtype=dt, device=dev)
+                    flat[1:] = xd.ravel()
+                    xd = flat[1:].view(t, d)
+                    check(xd.data_ptr() % 16 != 0, "x at an odd offset")
+                codes, scales = hold(x, xd, bits, group,
+                                     f"{label} int{bits} {_SHORT[str(dt)]}")
+                if label == "odd offset":   # codes at an odd offset
+                    flat = torch.zeros(codes.numel() + 1, dtype=codes.dtype,
+                                       device=dev)
+                    flat[1:] = codes.ravel()
+                    shifted = flat[1:].view(codes.shape)
+                    for od in (f32, bf16):
+                        check(torch.equal(
+                            ops.dequant_unpack_op(shifted, scales, bits=bits,
+                                                  group=group, out_dtype=od),
+                            ref.dequant_unpack_ref(codes, scales, bits,
+                                                   group, od)),
+                            f"dequant_unpack codes at an odd offset int{bits}")
+    print("scalar path (groups 2, 6, 10, bf16 group 4, x and codes at an "
+          "odd element offset) and T=1: quant_pack bit-equal to the plain "
+          "version and the host quantizer, dequant_unpack to its plain "
+          "version")
+    # ---- int4 nibble order: byte j = output 2j (low), 2j + 1 (high) ----
+    lo = torch.arange(64, device=dev) % 16
+    hi = (torch.arange(64, device=dev) * 7 + 3) % 16
+    packed = (lo | (hi << 4)).to(torch.uint8).repeat(3, 1)
+    sc = torch.tensor([[0.5, 2.0]] * 3, device=dev)
+    want = (torch.stack([lo - 8, hi - 8], -1).reshape(128).float()
+            * sc[0].repeat_interleave(64))
+    for od in (f32, bf16):
+        got = ops.dequant_unpack_op(packed, sc, bits=4, group=64,
+                                    out_dtype=od)
+        check(torch.equal(got.float(), want.expand(3, 128)),
+              f"dequant_unpack int4 nibble order -> {_SHORT[str(od)]}")
+    print("dequant_unpack int4 nibble order (low nibble first, minus 8): "
+          "as stated")
+
+    # ---- time at the main shape ----
+    calls, nbytes = quant_main_calls(torch, dev, ops)
+    variants = {}
+    for name, fn in calls.items():
+        dtimes = device_times(torch, fn)
+        b = nbytes[name] / PEAK_BYTES_S * 1e3
+        variants[name] = dict(
+            ms=time_ms(torch, fn), device_ms=dtimes["device_ms"],
+            kernels_per_call=dtimes["kernels_per_call"],
+            host_ms=dtimes["host_ms"], bound_ms=b,
+            share=b / dtimes["device_ms"])
+        v = variants[name]
+        print(f"{name} at the main shape: {v['device_ms']:.4f} ms of device "
+              f"time per call ({v['kernels_per_call']:g} CUDA kernels), "
+              f"time_ms {v['ms']:.4f}, host enqueue {v['host_ms']:.4f} ms; "
+              f"byte bound {b:.4f} ms ({nbytes[name] / 1e6:.1f} MB), share "
+              f"{v['share']:.3f}")
+    # the card's practical HBM rate: PyTorch's own copy and fill of the
+    # f32 output's size, three buffers in turn
+    bufs = [torch.empty(QUANT_T, 128, device=dev) for _ in range(4)]
+    turn = iter(range(1 << 30))
+    rates = {}
+    for name, fn, moved in (
+            ("copy_", lambda: bufs[next(turn) % 3].copy_(bufs[3]),
+             8 * bufs[3].numel()),
+            ("fill_", lambda: bufs[next(turn) % 3].fill_(1.0),
+             4 * bufs[3].numel())):
+        ms = device_times(torch, fn)["device_ms"]
+        rates[name] = moved / ms / 1e9
+        print(f"HBM yardstick: torch {name} of {QUANT_T} x 128 f32 "
+              f"({moved / 1e6:.1f} MB moved) {ms:.4f} ms of device time, "
+              f"{rates[name]:.3f} TB/s")
+    del bufs
+    xb = (torch.randn(QUANT_T, 128, generator=gen, device=dev)
+          * 3).to(bf16)
+    codes, scales = ref.quant_pack_ref(xb, 8, GROUP)
+    n = xb.numel()
+    plain = {"quant_pack": lambda: ref.quant_pack_ref(xb, 8, GROUP),
+             "dequant_unpack": lambda: ref.dequant_unpack_ref(
+                 codes, scales, 8, GROUP, f32)}
+    results = {}
+    for k, main, flops in (("quant_pack", QUANT_MAIN[0], 5 * n),
+                           ("dequant_unpack", QUANT_MAIN[1], n)):
+        v = variants[main]
+        results[k] = dict(
+            max_abs_err=worst[k], ms=v["ms"],
+            plain_ms=time_ms(torch, plain[k]), library_ms=None,
+            device_ms=v["device_ms"], host_ms=v["host_ms"],
+            kernels_per_call=v["kernels_per_call"],
+            variants={name: w for name, w in variants.items()
+                      if name.startswith(k)},
+            hbm_yardstick_tbs=rates)
+        results[k]["bound_ms"], results[k]["bound_by"] = bound(
+            nbytes[main], flops)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -186,57 +477,6 @@ def kernel_phase(torch, dev):
     gq = cfg.num_heads // cfg.kv_heads
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
-
-    # ---- quant_pack: the prefill KV of one request, (L*H*S, D) bf16 ----
-    t_main = cfg.num_layers * hkv * SEQ
-    worst = 0.0
-    cases = [(t_main, 8, torch.bfloat16), (t_main, 4, torch.bfloat16),
-             (77, 8, torch.float32), (4097, 4, torch.float32)]
-    for t, bits, dt in cases:
-        x = (torch.randn(t, d, generator=gen, device=dev) * 3).to(dt)
-        codes, scales = ops.quant_pack_op(x, bits=bits, group=GROUP)
-        c_ref, s_ref = ref.quant_pack_ref(x, bits, GROUP)
-        err = max(float((codes.int() - c_ref.int()).abs().max()),
-                  float((scales - s_ref).abs().max()))
-        print(f"quant_pack T={t} bits={bits} {str(dt)[6:]}: max|err| {err} "
-              f"(tolerance 0: bit for bit)")
-        check(err == 0.0, f"quant_pack T={t} bits={bits}")
-        worst = max(worst, err)
-    x = torch.randn(t_main, d, generator=gen, device=dev).to(torch.bfloat16)
-    n = x.numel()
-    results["quant_pack"] = dict(
-        max_abs_err=worst,
-        ms=time_ms(torch, lambda: ops.quant_pack_op(x, bits=8, group=GROUP)),
-        plain_ms=time_ms(torch, lambda: ref.quant_pack_ref(x, 8, GROUP)),
-        library_ms=None)
-    results["quant_pack"]["bound_ms"], results["quant_pack"]["bound_by"] = \
-        bound(n * 2 + n + (n // GROUP) * 4, 5 * n)
-
-    # ---- dequant_unpack: the decode-side restore, f32 out ----
-    worst = 0.0
-    for t, bits, od in [(t_main, 8, torch.float32), (t_main, 4, torch.float32),
-                        (77, 8, torch.bfloat16), (4097, 4, torch.bfloat16)]:
-        xx = torch.randn(t, d, generator=gen, device=dev) * 3
-        codes, scales = ref.quant_pack_ref(xx, bits, GROUP)
-        out = ops.dequant_unpack_op(codes, scales, bits=bits, group=GROUP,
-                                    out_dtype=od)
-        want = ref.dequant_unpack_ref(codes, scales, bits, GROUP, dtype=od)
-        err = float((out.float() - want.float()).abs().max())
-        print(f"dequant_unpack T={t} bits={bits} -> {str(od)[6:]}: "
-              f"max|err| {err} (tolerance 0: bit for bit)")
-        check(err == 0.0, f"dequant_unpack T={t} bits={bits}")
-        worst = max(worst, err)
-    codes, scales = ref.quant_pack_ref(x, 8, GROUP)
-    results["dequant_unpack"] = dict(
-        max_abs_err=worst,
-        ms=time_ms(torch, lambda: ops.dequant_unpack_op(
-            codes, scales, bits=8, group=GROUP, out_dtype=torch.float32)),
-        plain_ms=time_ms(torch, lambda: ref.dequant_unpack_ref(
-            codes, scales, 8, GROUP, torch.float32)),
-        library_ms=None)
-    results["dequant_unpack"]["bound_ms"], \
-        results["dequant_unpack"]["bound_by"] = bound(
-            n + (n // GROUP) * 4 + n * 4, n)
 
     # ---- paged_attention, arena entry: one decode step's layer read ----
     pps = -(-(SEQ + DECODE_TOKENS + 2) // PAGE_SIZE)
@@ -1053,12 +1293,20 @@ def attention_main_calls(torch, dev, ops):
 def main_times(torch, dev, ops):
     """``time_ms`` of the arena attention entries at the main path's
     shapes (``attention_main_calls``), decode_attention at case (a)
-    (``decode_main_call``) and hadamard at the pipeline's shape, f32 and
-    bf16 in (``hadamard_main_calls``), through ``ops``."""
+    (``decode_main_call``), hadamard at the pipeline's shape, f32 and
+    bf16 in (``hadamard_main_calls``), and quant_pack and dequant_unpack
+    at the main shape (``quant_main_calls``), through ``ops``; for the two
+    main variants of the last (``QUANT_MAIN``) also the device time per
+    call (``device_times``), under "<name> device"."""
     calls = dict(attention_main_calls(torch, dev, ops))
     calls.update(decode_main_call(torch, dev, ops)[0])
     calls.update(hadamard_main_calls(torch, dev, ops)[0])
-    return {k: time_ms(torch, fn) for k, fn in calls.items()}
+    quant = quant_main_calls(torch, dev, ops)[0]
+    calls.update(quant)
+    out = {k: time_ms(torch, fn) for k, fn in calls.items()}
+    for k in QUANT_MAIN:
+        out[f"{k} device"] = device_times(torch, quant[k])["device_ms"]
+    return out
 
 
 def attention_phase_times(torch, dev):
@@ -1110,8 +1358,9 @@ def attention_phase_times(torch, dev):
 
 
 def compare_with(torch, baseline: Path):
-    """The arena attention entries, decode_attention and hadamard at the
-    main path's shapes (``main_times``), timed from ``baseline`` (a
+    """The arena attention entries, decode_attention, hadamard,
+    quant_pack and dequant_unpack at the main path's shapes
+    (``main_times``), timed from ``baseline`` (a
     checkout of another commit, e.g. ``git archive`` of the parent) and
     from this tree, in turns (baseline, this, this, baseline), each in a
     process of its own on this card."""
@@ -1381,6 +1630,191 @@ def decode_step_times(torch, dev, cfg, params, baseline=None):
     finally:
         build._LOADED["paged_attention"] = ours
     return runs
+
+
+def device_ms_of(torch, fn):
+    """(fn(), the device time between CUDA events recorded just before
+    and just after it, in ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compress_steps(kv, strategy, clock):
+    """``pipeline._device_quantize`` of K and V, step by step, ``clock()``
+    (ms, after a synchronize) read between the steps.  Returns ({step:
+    ms}, the two payloads)."""
+    import torch
+
+    from repro_torch.core import codecs
+    from repro_torch.core.pipeline import _lh_index
+    from repro_torch.kernels import ops
+
+    steps = dict(kernel=0.0, torch_ops=0.0, copies=0.0, host_codec=0.0,
+                 kernel_device=0.0)
+    payloads = []
+    t = clock()
+    for x, bits in ((kv.k, strategy.key_bits), (kv.v, strategy.value_bits)):
+        L, H, S, D = x.shape
+        (codes, scales), ms = device_ms_of(torch, lambda: ops.quant_pack_op(
+            x.reshape(L * H * S, D), bits=bits, group=strategy.group_size))
+        steps["kernel_device"] += ms
+        t1 = clock()
+        if bits == 4:
+            u = torch.stack([codes & 0x0F, codes >> 4], dim=-1)
+        else:
+            u = (codes.to(torch.int16) + (1 << (bits - 1))).to(torch.uint8)
+        s16 = scales.to(torch.float16)
+        t2 = clock()
+        u_host = u.reshape(L * H, S, D).cpu().numpy()
+        s16.cpu().numpy()
+        t3 = clock()
+        payloads.append(codecs.encode_codes(u_host, bits, strategy.codec))
+        _lh_index(L, H)
+        t4 = clock()
+        for k, dt in zip(steps, (t1 - t, t2 - t1, t3 - t2, t4 - t3)):
+            steps[k] += dt
+        t = t4
+    return steps, payloads
+
+
+def decompress_steps(comp, dev, clock):
+    """``pipeline._device_dequantize`` of K and V, step by step, as
+    :func:`compress_steps`.  Returns ({step: ms}, the two restored
+    tensors)."""
+    import torch
+
+    from repro_torch.core import codecs
+    from repro_torch.kernels import ops
+
+    steps = dict(host_codec=0.0, copies=0.0, torch_ops=0.0, kernel=0.0,
+                 kernel_device=0.0)
+    outs = []
+    t = clock()
+    L, H, S, D = comp.shape
+    for w in (comp.k_buckets[0], comp.v_buckets[0]):
+        u_host = codecs.decode_codes(w.payload, w.bits, L * H * S * D,
+                                     comp.strategy.codec)
+        t1 = clock()
+        u = torch.from_numpy(u_host).to(dev).reshape(-1, D)
+        s = torch.from_numpy(w.scale.reshape(-1, D // w.group_size)).to(dev)
+        t2 = clock()
+        if w.bits == 4:
+            codes = (u[:, 0::2] | (u[:, 1::2] << 4)).contiguous()
+        else:
+            codes = (u.to(torch.int16) - (1 << (w.bits - 1))).to(torch.int8)
+        s = s.float()
+        t3 = clock()
+        out, ms = device_ms_of(torch, lambda: ops.dequant_unpack_op(
+            codes, s, bits=w.bits, group=w.group_size,
+            out_dtype=torch.float32))
+        outs.append(out)
+        steps["kernel_device"] += ms
+        t4 = clock()
+        for k, dt in zip(steps, (t1 - t, t2 - t1, t3 - t2, t4 - t3)):
+            steps[k] += dt
+        t = t4
+    return steps, outs
+
+
+def codec_breakdown(torch, dev, cfg, params, strategy):
+    """Where one full-width cold request's compress and decompress stages
+    spend their time (``strategy``: phase 3's static profile; one
+    SEQ-token prefill's device KV, K and V): each stage's wall time as the
+    runtime takes it (``workers.compress_kvs`` / ``decompress_kvs``,
+    median of three); and the stage redone step by step as
+    ``pipeline._device_quantize`` / ``_device_dequantize`` take it, with
+    a synchronize after each step: the kernel, the offset, unpack and
+    scale-cast torch ops, the copies between device and host, and the
+    host codec, beside the time between CUDA events around the
+    quant_pack or dequant_unpack launches (on the H100 machine
+    torch.profiler recorded no device work in windows around the compress
+    stage, three in a row; the kernels' own device time at this shape is
+    phase 2's).
+    The redone stage must give the stage's payload bytes and restored KV.
+    Prints one line per stage; returns the numbers (ms)."""
+    from repro_torch.core.quality import _prompts_for, extract_kv
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving.workers import compress_kvs, decompress_kvs
+
+    tokens, _ = _prompts_for("qalike", 1, SEQ, 0)
+    _, caches = prefill(cfg, params, {"tokens": torch.as_tensor(
+        tokens, dtype=torch.int32, device=dev)}, SEQ)
+    kv = extract_kv(cfg, caches, 0, SEQ)
+    del caches
+    walls = {"compress": [], "decompress": []}
+    for _ in range(3):
+        comps, _, tc = compress_kvs(strategy, [kv])
+        restored, td = decompress_kvs(comps, device=dev)
+        walls["compress"].append(tc * 1e3)
+        walls["decompress"].append(td * 1e3)
+    comp = comps[0]
+
+    def clock():
+        return _stage_clock(torch, dev) * 1e3
+
+    runs_c, runs_d = [], []
+    for _ in range(3):
+        steps_c, payloads = compress_steps(kv, strategy, clock)
+        check(payloads == [comp.k_buckets[0].payload,
+                           comp.v_buckets[0].payload],
+              "the compress stage redone step by step gives its bytes")
+        steps_d, outs = decompress_steps(comp, dev, clock)
+        check(torch.equal(outs[0].reshape(comp.shape), restored[0].k)
+              and torch.equal(outs[1].reshape(comp.shape), restored[0].v),
+              "the decompress stage redone step by step gives its KV")
+        runs_c.append(steps_c)
+        runs_d.append(steps_d)
+    out = {}
+    for stage, runs, kernel in (("compress", runs_c, "quant_pack"),
+                                ("decompress", runs_d, "dequant_unpack")):
+        steps = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        device = steps.pop("kernel_device")
+        wall = statistics.median(walls[stage])
+        out[stage] = dict(wall_ms=wall, runs_ms=walls[stage],
+                          steps_ms=steps, kernel_device_ms=device)
+        print(f"cold request {stage} stage ({ARCH}, one {SEQ}-token "
+              f"prefill's K and V, {strategy.short_name()}): wall "
+              f"{wall:.2f} ms (median of "
+              + " / ".join(f"{x:.2f}" for x in walls[stage])
+              + f"); {kernel}'s two launches {device:.4f} ms between "
+              f"CUDA events around them (the host's enqueue of each "
+              f"included); step by step, medians of three: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in steps.items())
+              + f", sum {sum(steps.values()):.2f} ms")
+    return out
+
+
+def baseline_codec_check(torch, dev, cfg, params, rt, baseline: Path):
+    """Phase 3 served again with ``baseline``'s quant_pack and
+    dequant_unpack libraries in place of this tree's: every request must
+    get the same tokens and the same wire bytes as ``rt``."""
+    from repro_torch.kernels import build
+
+    names = ("quant_pack", "dequant_unpack")
+    ours = {n: build.load(n) for n in names}
+    try:
+        for n in names:
+            build._LOADED[n] = _baseline_library(torch, baseline, n)
+        other, wall, _ = serve(torch, dev, cfg, params)
+    finally:
+        build._LOADED.update(ours)
+    release_arenas(torch, other)
+
+    def served(runtime):
+        return {r.rid: (list(map(int, r.tokens)), r.wire_bytes)
+                for r in runtime.completed}
+
+    same = served(other) == served(rt)
+    print(f"phase 3 with {baseline}'s quant_pack and dequant_unpack: "
+          f"{len(other.completed)} requests in {wall:.2f} s wall, the same "
+          f"tokens and wire bytes per request: {same}")
+    check(same, "phase 3 tokens and wire bytes unchanged by this tree's "
+          "quant_pack and dequant_unpack")
 
 
 def reference_check(torch, rt, cfg, params, dev):
@@ -1727,8 +2161,9 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="a checkout of another commit whose arena attention, "
-                         "decode_attention and hadamard kernels are timed "
-                         "beside this tree's, in turns")
+                         "decode_attention, hadamard, quant_pack and "
+                         "dequant_unpack kernels are timed beside this "
+                         "tree's, in turns")
     ap.add_argument("--attention-times", type=Path, default=None,
                     help=argparse.SUPPRESS)   # one turn of --baseline
     args = ap.parse_args(argv)
@@ -1758,8 +2193,11 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {lib}: {line.strip()}")
 
+    quant_pack_sass()
+
     # ---- 2. kernels ----
     results = kernel_phase(torch, dev)
+    results.update(quant_kernel_phase(torch, dev))
     results["paged_verify_attention"] = verify_kernel_phase(torch, dev)
     results["hadamard"], host_exact = hadamard_kernel_phase(torch, dev)
     results["decode_attention"], decode_launches = \
@@ -1807,6 +2245,10 @@ def main(argv) -> int:
           "full-width decode through the kernel agrees with the plain path")
     strategy = rt.static_profile.strategy
     release_arenas(torch, rt)
+    codec_breakdown(torch, dev, cfg, params, strategy)
+    if args.baseline is not None:
+        baseline_codec_check(torch, dev, cfg, params, rt,
+                             args.baseline.resolve())
 
     # ---- 4. speculative runtime ----
     for kind in ("ngram", "model"):

@@ -107,6 +107,16 @@ def _split_workspace(b: int, hkv: int, rows: int, s: int,
                        dtype=torch.float32, device=dev)
 
 
+# quant_pack and dequant_unpack stream over the flat T * D elements in
+# 16-byte chunks, through a vector path where the shape allows it:
+# quant_pack when x is 16-byte aligned and a group is 1-128 whole chunks
+# of x, a power of two of them (group a multiple of 8 for bf16, of 4 for
+# f32); dequant_unpack when a group is a multiple of 4 (f32 out) or 8
+# (bf16 out) elements and the codes are aligned to one chunk's code
+# bytes.  Every other shape they accept takes the scalar path of the same
+# library, with the same results.
+
+
 # ---------------------------------------------------------------------------
 def quant_pack_op(x: torch.Tensor, bits: int = 8, group: int = 64,
                   interpret: Optional[bool] = None

@@ -6,7 +6,9 @@ The file imports no JAX, so it runs on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
-Tolerances: quant_pack and dequant_unpack bit for bit; the Pallas-
+Tolerances: quant_pack and dequant_unpack bit for bit (quant_pack also
+against the host quantizer, on ``quant_boundary``'s rows and on the
+shapes that take the kernels' scalar path); the Pallas-
 interface paged (verify) attention and decode_attention with f32 q within
 atol 2e-5 / rtol 1e-4 (f32 sums in another order; an online softmax for
 decode_attention), decode_attention with bf16 q within 1 bf16 ulp, or
@@ -37,7 +39,9 @@ from repro_torch.kernels import (  # noqa: E402
     quant_pack_op,
     reset_launches,
 )
+from repro_torch.core.quantizers import group_quantize  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.kernels.quant_boundary import boundary_rows  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -75,6 +79,130 @@ def test_quant_pack_and_dequant_unpack(cuda, bits, t):
                                     out_dtype=od)
             assert torch.equal(got, R.dequant_unpack_ref(codes, scales,
                                                          bits, 64, od))
+
+
+def _host_wire_codes(x: np.ndarray, bits: int, group: int):
+    """The host quantizer's offset uint8 codes and fp16 scales of x."""
+    t, d = x.shape
+    codes, scales, _ = group_quantize(x.reshape(1, t, d), bits, "per_token",
+                                      group, True)
+    return codes.reshape(t, d), scales.reshape(t, d // group)
+
+
+def _as_wire(codes: torch.Tensor, bits: int) -> np.ndarray:
+    c = R.unpack_int4_ref(codes) if bits == 4 else codes
+    return (c.to(torch.int16) + (1 << (bits - 1))).to(torch.uint8).cpu() \
+        .numpy()
+
+
+@pytest.mark.parametrize("t", [1, 77, 4097])
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_quant_pack_boundary_rows(cuda, bf16, bits, group, t):
+    """Quotients on .5, one grid step off it, where the reciprocal
+    shortcut differs, at +-qmax, all zero, below the scale floor: the
+    kernel equals its plain version and the host quantizer bit for bit."""
+    x = boundary_rows(t, 128, group, bits, bf16, seed=t + group + bits)
+    xd = torch.from_numpy(x).to(cuda, torch.bfloat16 if bf16
+                                else torch.float32)
+    codes, scales = quant_pack_op(xd, bits=bits, group=group)
+    cref, sref = R.quant_pack_ref(xd, bits, group)
+    assert torch.equal(codes, cref) and torch.equal(scales, sref)
+    host_codes, host_scales = _host_wire_codes(x, bits, group)
+    np.testing.assert_array_equal(_as_wire(codes, bits), host_codes)
+    np.testing.assert_array_equal(
+        scales.to(torch.float16).cpu().numpy(), host_scales)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("case", ["group2", "group6", "group10",
+                                  "odd_offset", "t1", "group4_bf16"])
+def test_quant_pack_scalar_path(cuda, case, bits):
+    """Shapes the vector path cannot take (a group that is not whole
+    16-byte chunks of x, an x at an odd element offset) go to the scalar
+    path of the same library: bit for bit as well.  T 1 takes the vector
+    path with a single warp."""
+    group, d, t = {"group2": (2, 64, 33), "group6": (6, 96, 77),
+                   "group10": (10, 160, 5), "odd_offset": (64, 128, 77),
+                   "t1": (64, 128, 1), "group4_bf16": (4, 64, 9)}[case]
+    for bf16 in (False, True):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        x = boundary_rows(t, d, group, bits, bf16, seed=len(case) + bits)
+        if case == "odd_offset":
+            flat = torch.zeros(t * d + 1, dtype=dt, device=cuda)
+            flat[1:] = torch.from_numpy(x.ravel()).to(cuda, dt)
+            xd = flat[1:].view(t, d)
+            assert xd.data_ptr() % 16 and xd.is_contiguous()
+        else:
+            xd = torch.from_numpy(x).to(cuda, dt)
+        codes, scales = quant_pack_op(xd, bits=bits, group=group)
+        cref, sref = R.quant_pack_ref(xd, bits, group)
+        assert torch.equal(codes, cref) and torch.equal(scales, sref)
+        host_codes, _ = _host_wire_codes(x, bits, group)
+        np.testing.assert_array_equal(_as_wire(codes, bits), host_codes)
+        for od in (torch.float32, torch.bfloat16):
+            got = dequant_unpack_op(codes, scales, bits=bits, group=group,
+                                    out_dtype=od)
+            assert torch.equal(got, R.dequant_unpack_ref(codes, scales,
+                                                         bits, group, od))
+
+
+@pytest.mark.parametrize("t", [1, 77, 4097])
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_dequant_unpack_grid(cuda, bits, group, t):
+    """Every code value at every place of a group, f32 and bf16 out, and
+    the codes at an offset that breaks the vector path's alignment."""
+    gen = torch.Generator(device=cuda).manual_seed(t + group + bits)
+    lo, hi = (-128, 128) if bits == 8 else (0, 256)
+    cw = 128 if bits == 8 else 64
+    dt = torch.int8 if bits == 8 else torch.uint8
+    codes = torch.randint(lo, hi, (t, cw), generator=gen, device=cuda,
+                          dtype=torch.int32).to(dt)
+    scales = torch.rand(t, 128 // group, generator=gen, device=cuda) * 0.1
+    scales[:, 0] = 1e-8
+    flat = torch.zeros(t * cw + 1, dtype=dt, device=cuda)
+    flat[1:] = codes.ravel()
+    shifted = flat[1:].view(t, cw)
+    for od in (torch.float32, torch.bfloat16):
+        want = R.dequant_unpack_ref(codes, scales, bits, group, od)
+        for c in (codes, shifted):
+            got = dequant_unpack_op(c, scales, bits=bits, group=group,
+                                    out_dtype=od)
+            assert torch.equal(got, want)
+
+
+def test_dequant_unpack_nibble_order(cuda):
+    """int4: byte j holds output 2j in its low nibble, 2j + 1 in its high
+    one, each as nibble - 8."""
+    lo = torch.arange(64, device=cuda) % 16
+    hi = (torch.arange(64, device=cuda) * 7 + 3) % 16
+    packed = (lo | (hi << 4)).to(torch.uint8).repeat(3, 1)
+    scales = torch.tensor([[0.5, 2.0]] * 3, device=cuda)
+    for od in (torch.float32, torch.bfloat16):
+        got = dequant_unpack_op(packed, scales, bits=4, group=64,
+                                out_dtype=od).float()
+        want = torch.stack([lo - 8, hi - 8], dim=-1).reshape(128).float()
+        want = want * torch.tensor([0.5] * 64 + [2.0] * 64, device=cuda)
+        assert torch.equal(got, want.expand(3, 128))
+
+
+def test_quant_pack_beyond_one_launch(cuda):
+    """An input of more than 2^30 elements, which the launchers cut into
+    pieces of whole groups: rows on both sides of the cut and at the end
+    equal the plain version."""
+    t = (1 << 30) // 128 + 77
+    x = torch.randn(t, 128, dtype=torch.bfloat16, device=cuda)
+    codes, scales = quant_pack_op(x, bits=4, group=64)
+    out = dequant_unpack_op(codes, scales, bits=4, group=64,
+                            out_dtype=torch.bfloat16)
+    cut = (1 << 30) // 128
+    for r0, r1 in ((0, 8), (cut - 8, cut + 8), (t - 8, t)):
+        c, s = R.quant_pack_ref(x[r0:r1], 4, 64)
+        assert torch.equal(codes[r0:r1], c) and torch.equal(scales[r0:r1], s)
+        assert torch.equal(out[r0:r1],
+                           R.dequant_unpack_ref(c, s, 4, 64, torch.bfloat16))
 
 
 def _pallas_pools(gen, dev, b, hkv, s, d, bits, group, ps):
