@@ -29,14 +29,26 @@ from repro_torch.serving.scheduler import (
     SchedulerConfig,
     priority_key,
 )
+from repro_torch.serving.simulator import (
+    KVServePolicy,
+    NoCompressionPolicy,
+    Policy,
+    SimConfig,
+    SimResult,
+    Simulator,
+    StaticPolicy,
+)
 
 # The runtimes (ServingRuntime / ClusterRuntime and the worker classes)
 # live in repro_torch.serving.engine, .cluster and .workers and are
-# imported directly by their users.  The simulator is not ported yet.
+# imported directly by their users: they pull in torch's model stack,
+# which the simulator-only path does not need.
 
 __all__ = [
     "GBPS", "BandwidthTrace", "GoodputEstimator", "KVWire", "WireTransfer",
-    "LIFECYCLE", "Request", "WorkloadMix", "kv_bytes_for",
+    "LIFECYCLE", "Request", "WorkloadMix",
+    "kv_bytes_for", "KVServePolicy", "NoCompressionPolicy", "Policy",
+    "SimConfig", "SimResult", "Simulator", "StaticPolicy",
     "PrefixKVStore", "StoreEntry", "SLO_CLASSES", "slo_rank",
     "KVTier", "TierHit", "TierSpec", "TieredKVStore", "default_tier_specs",
     "ContinuousScheduler", "SchedulerConfig", "AdmissionController",

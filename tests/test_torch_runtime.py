@@ -30,6 +30,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_cluster import (  # noqa: E402,F401
+    one_thread,
+    port_kv_sanitizer,
+)
+
 REPO = Path(__file__).resolve().parents[1]
 SEQ, DECODE_TOKENS, PAGE_SIZE = 64, 6, 8   # page_size divides max_len 72
 
@@ -168,8 +173,10 @@ def jax_runs(tmp_path_factory):
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO / "src"), str(REPO / "tests"), env.get("PYTHONPATH", "")])
     env["JAX_PLATFORMS"] = "cpu"
+    env["OMP_NUM_THREADS"] = "1"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                        + " --xla_allow_excess_precision=false").strip()
+                        + " --xla_allow_excess_precision=false"
+                        + " --xla_cpu_multi_thread_eigen=false").strip()
     proc = subprocess.run([sys.executable, __file__, str(out)], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -196,7 +203,8 @@ def test_runtime_matches_jax(jax_runs, port_model, mode, paged, profile):
     from _runtime_scenario import run_scenario
     rt = _build("repro_torch", mode, paged, profile, port_model,
                 device="cpu")
-    got = _result(rt, run_scenario(rt))
+    with one_thread():
+        got = _result(rt, run_scenario(rt))
     want = jax_runs[_config_id(mode, paged, profile)]
     assert set(got) == set(want)
     for rid, w in sorted(want.items()):
@@ -228,7 +236,8 @@ def test_paged_quant_resident_hits_skip_decompress(port_model):
     from _runtime_scenario import run_scenario
     rt = _build("repro_torch", "pool", True, "per_token_int8", port_model,
                 device="cpu")
-    run_scenario(rt)
+    with one_thread():
+        run_scenario(rt)
     hits = [r for r in rt.completed if r.pool_hit]
     assert hits and all(r.breakdown["decompress"] == 0.0 for r in hits)
 
@@ -248,7 +257,9 @@ def test_runtime_config_fields_and_defaults_match():
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
-            "repro_torch.kernels, repro_torch.models.convert; "
+            "repro_torch.kernels, repro_torch.models.convert, "
+            "repro_torch.workloads, repro_torch.serving.simulator, "
+            "repro_torch.analysis.sanitize; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
