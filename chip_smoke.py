@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-Six phases, in order; any failure exits non-zero and no phase's error
+Seven phases, in order; any failure exits non-zero and no phase's error
 is caught:
 
 1. Build: compile every Hopper kernel of ``src/repro_torch/kernels/csrc``
@@ -71,13 +71,35 @@ is caught:
    ``paged_attention`` and ``quant_pack`` launch.  The same trace then
    runs through the port's ``Simulator`` with this run's measured
    speeds and on-wire bytes, and the per-request gap is printed.
+7. Training, checkpoints and the cross-pod paths: (a) train the
+   ``tiny-lm`` reference model on the card (``train_reference_model``,
+   400 steps of 16 x 256 from the port's seed-0 init; loss every 50
+   steps and ms per step), hold its eval loss on a held-out batch
+   against the JAX package's trainer run from the same init (measured
+   on the CPU) and its masters and moments to f32, save its parameters
+   and AdamW state with ``CheckpointManager`` and restore them onto the
+   card bit for bit, and print ``evaluate_quality`` of the Hadamard +
+   int8 profile and mixhq on it; (b) five steps of ``llama3.1-8b`` at
+   full width, depth cut to 4 layers, batch 4 x 1024, remat, 8-bit
+   gradient compression with error feedback: loss, ms per step,
+   tokens/s, peak memory and share of the bf16 dense peak per step,
+   ``quant_pack`` and ``dequant_unpack`` once per leaf per step, the
+   first step's compressed gradients equal to the plain round trip bit
+   for bit; (c) two processes on the card in a gloo group:
+   ``make_kv_transfer`` of one 1024-token request's full-width KV at
+   bits 16, 8 and 4 (the neighbour's cache, or its plain
+   quantize-dequantize, bit for bit; bytes sent equal to
+   ``transfer_wire_bytes``; ms per transfer) and
+   ``make_cross_pod_grad_sync`` of one layer's gradients (equal to the
+   plain ring bit for bit).
 
 Prints per-request TTFT/JCT/wire bytes/breakdowns, the speculative run's
 verify steps, committed tokens and accept rates beside the plain run's
 TTFT and JCT, phase 5's profiles and per-batch breakdowns, phase 6's
 per-request route, tier, TTFT, JCT and breakdown, its stores' tiers and
-the simulator's gap, one JSON line of kernel results (with each kernel's
-launches in phase 6), the card's name and power
+the simulator's gap, phase 7's training and transfer numbers, one JSON
+line of kernel results (with each kernel's launches in phases 6 and 7),
+the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Exits
 with an error, printing no result, when there is no CUDA device or the
 port's sources are missing.
@@ -85,10 +107,13 @@ port's sources are missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2437,6 +2462,342 @@ def cluster_phase(torch, dev, cfg, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training on the card.  (a) The reference model: tiny-lm with the
+# JAX package's defaults from the port's seed-0 init, eval loss on a batch
+# no training step sees.  The target is the JAX package's trainer run from
+# that same init (tests/torch_reference_loss.py, on the CPU): the same
+# numbers to start from and the same schedule, so only the arithmetic
+# differs.  Adam turns last-place differences near zero into whole
+# updates (ROADMAP Queue 3), so the arithmetic alone moves this loss: the
+# card lands 9.7e-3 from the target, the port's CPU runs at 1-8 threads
+# within 5.1e-3 of it.  The tolerance is that card gap with half again as
+# margin.  A planted fault moves the loss by about as much as the
+# arithmetic does, so the band catches some faults only: on an H100 a
+# dropped weight decay, bf16 masters, a constant learning rate and a lost
+# clip land outside it and no warmup inside; on the CPU only a constant
+# learning rate and no warmup land outside.  So tests/test_torch_train.py
+# holds the trainer's settings against the JAX package's, and this phase
+# checks that the masters and moments are f32.  The JAX-trained cache (its
+# own init) is printed beside the target.
+# (b) llama3.1-8b at full width, depth cut to TRAIN_LAYERS (f32 masters,
+# gradients, both moments and the error feedback take 20 B a parameter:
+# 38 GB at 4 layers, 160 GB at 32), TRAIN_STEPS steps with 8-bit
+# gradient compression through quant_pack and dequant_unpack.  (c) KV
+# transfer and gradient sync between two processes on the card (a gloo
+# group: NCCL refuses two ranks on one GPU).
+# ---------------------------------------------------------------------------
+EVAL_SEED = 999_999
+REF_EVAL_TARGET = 0.6406403183937073     # JAX's trainer, the port's init
+REF_EVAL_TOL = 0.015
+JAX_CACHE_EVAL = 0.6595555543899536      # the JAX-trained cache
+# the port's trainer on the CPU at 8, 4, 2 and 1 threads
+PORT_CPU_EVALS = (0.6400114893913269, 0.6409062147140503,
+                  0.6443520784378052, 0.6456921696662903)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_BITS = 4, 4, 1024, 5, 8
+PEAK_BF16_FLOP_S = 989e12     # H100 SXM, dense bf16 tensor cores
+
+
+def plain_roundtrip(x, bits: int, dtype):
+    """_quant_roundtrip through the kernels' plain versions: quantize,
+    scales to f16 and back, dequantize to ``dtype``."""
+    from repro_torch.kernels import ref
+
+    gg = min(GROUP, x.shape[-1])
+    codes, scale = ref.quantize_ref(x.reshape(-1, x.shape[-1]), bits, gg)
+    return ref.dequantize_ref(codes, scale.half().float(), gg,
+                              dtype=dtype).reshape(x.shape)
+
+
+def reference_training(torch, dev):
+    """Phase 7a.  Returns the launch counts of the quality evaluation."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import quality as Q
+    from repro_torch.core.strategy import BASELINES
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution.steps import make_eval_step
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.convert import flatten
+
+    t0 = time.perf_counter()
+    cfg, params, last, opt = Q.train_reference_model(device=dev,
+                                                     log_every=50)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    print(f"phase 7a: tiny-lm trained on {dev}, {Q.REF_STEPS} steps of "
+          f"16 x 256 in {train_s:.2f} s ({train_s / Q.REF_STEPS * 1e3:.2f} "
+          f"ms/step), last loss {last:.4f}")
+    tokens, mask = make_batch("mixed", 16, 256, seed=EVAL_SEED)
+    batch = {"tokens": torch.as_tensor(tokens).to(dev),
+             "mask": torch.as_tensor(mask[:, 1:]).to(dev)}
+    loss = float(make_eval_step(cfg)(params, batch)["loss"])
+    print(f"phase 7a eval loss on the held-out batch (seed {EVAL_SEED}): "
+          f"{loss:.6f}; target {REF_EVAL_TARGET:.6f} (JAX's trainer from "
+          f"the port's init) +- {REF_EVAL_TOL}; the port's CPU runs "
+          f"{min(PORT_CPU_EVALS):.6f}-{max(PORT_CPU_EVALS):.6f}; the "
+          f"JAX-trained cache {JAX_CACHE_EVAL:.6f}")
+    check(abs(loss - REF_EVAL_TARGET) <= REF_EVAL_TOL,
+          "the reference model trained on the card reaches the target")
+    check(all(x.dtype == torch.float32 for _, x in flatten(
+        {"params": params, "mu": opt["mu"], "nu": opt["nu"]})),
+        "f32 masters and moments")
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        state = {"params": params, "opt": opt}
+        mgr.save(Q.REF_STEPS, state, metadata={"loss": last})
+        back = mgr.restore(state, device=dev)
+        pairs = list(zip(flatten(state), flatten(back)))
+        check(all(a.device == b.device and a.dtype == b.dtype
+                  and torch.equal(a, b) for (_, a), (_, b) in pairs),
+              "checkpoint restores the trained state bit for bit")
+    print(f"phase 7a checkpoint: {len(pairs)} leaves (params and AdamW "
+          f"state) saved and restored onto {dev}, bit for bit")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    for label, strategy in (("hadamard-int8", hadamard_int8()),
+                            ("mixhq", BASELINES["mixhq"])):
+        acc = Q.evaluate_quality(strategy, ref=(cfg, params), device=dev)
+        print(f"phase 7a quality, {label} on the trained model: "
+              + ", ".join(f"{w} {a:.4f}" for w, a in acc.items()))
+        check(all(0.0 <= a <= 1.0 for a in acc.values()), "accuracies")
+    torch.cuda.synchronize()
+    counts = launches()
+    print(f"phase 7a quality: {time.perf_counter() - t0:.2f} s wall, "
+          f"launches {counts}")
+    return counts
+
+
+def full_width_training(torch, dev):
+    """Phase 7b.  Returns the launch counts of the training steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution.grad_compress import (
+        init_ef_state, make_grad_transform)
+    from repro_torch.distribution.optimizer import OptConfig, init_opt_state
+    from repro_torch.distribution.steps import make_train_step
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.convert import flatten, tree_map
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for _, p in flatten(params))
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    # 6 N T counts the matmuls' parameters: the input embedding is a gather
+    n_matmul = n_params - params["embed"]["tok"].numel()
+    flop_s = lambda dt: 6 * n_matmul * tokens_per_step / dt  # noqa: E731
+    print(f"phase 7b: {ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), depth cut {get_config(ARCH).num_layers} -> "
+          f"{cfg.num_layers} layers: {n_params / 1e9:.3f}B f32 parameters, "
+          f"{n_matmul / 1e9:.3f}B of them in matmuls; "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat, {TRAIN_BITS}-bit "
+          f"gradient compression with error feedback")
+    opt = init_opt_state(params)
+    opt["ef"] = init_ef_state(params)
+    compress = make_grad_transform(bits=TRAIN_BITS)
+    # the leaves _quant_roundtrip quantizes (every one at llama3.1-8b width)
+    quantized = sum(p.ndim > 0 and p.shape[-1] % min(GROUP, p.shape[-1]) == 0
+                    for _, p in flatten(params))
+    held, marks = [], {}
+
+    def mark(name):     # a CUDA event, to split the step's device time
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    def checked(grads, state):
+        """The transform (between the backward pass and AdamW); on the
+        first step, leaf by leaf, each leaf's output held against the
+        plain round trip of the same input."""
+        mark("compress")
+        if held:
+            out = compress(grads, state)
+        else:
+            def leaf(g, e):
+                want = plain_roundtrip(g.float() + e, TRAIN_BITS,
+                                       torch.float32)
+                got = compress({"g": g}, {"ef": {"g": e}})[0]["g"]
+                held.append(torch.equal(got, want))
+                return got
+
+            out = tree_map(leaf, grads, state["ef"]), state
+        mark("adamw")
+        return out
+
+    step = make_train_step(cfg, OptConfig(lr=3e-4, warmup_steps=2,
+                                          total_steps=TRAIN_STEPS,
+                                          weight_decay=0.01),
+                           remat=True, grad_transform=checked)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    times = []
+    for i in range(TRAIN_STEPS):
+        tokens, mask = make_batch("mixed", TRAIN_BATCH, TRAIN_SEQ,
+                                  seed=99991 * 7 + i)
+        batch = {"tokens": torch.as_tensor(tokens).to(dev),
+                 "mask": torch.as_tensor(mask[:, 1:]).to(dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        params, opt, m = step(params, opt, batch)
+        mark("end")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        loss = float(m["loss"])
+        check(math.isfinite(loss), "full-width training loss is finite")
+        split = ", ".join(
+            f"{name} {marks[a].elapsed_time(marks[b]):.1f}"
+            for name, a, b in (("forward + backward", "start", "compress"),
+                               ("compression", "compress", "adamw"),
+                               ("AdamW", "adamw", "end")))
+        print(f"phase 7b step {i + 1}: loss {loss:.4f}, {dt * 1e3:.1f} ms"
+              f"{' (holds the plain round trip)' if i == 0 else ''} "
+              f"({split} ms between CUDA events), "
+              f"{tokens_per_step / dt:.0f} tokens/s, max allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+              f"{flop_s(dt) / PEAK_BF16_FLOP_S:.4f} of the bf16 dense peak")
+    counts = launches()
+    steady = statistics.median(times[1:])
+    print(f"phase 7b: median of steps 2-{TRAIN_STEPS} {steady * 1e3:.1f} ms "
+          f"({tokens_per_step / steady:.0f} tokens/s, "
+          f"{flop_s(steady) / PEAK_BF16_FLOP_S:.4f} of 989 TFLOP/s, "
+          f"6 N T with N the {n_matmul / 1e9:.3f}B matmul parameters; the "
+          f"matmuls with remat's second forward, 8 N T, take "
+          f"{8 / 6 * flop_s(1.0) / PEAK_BF16_FLOP_S * 1e3:.1f} ms at that "
+          f"peak); launches {counts}; {quantized} quantized leaves a step")
+    check(len(held) == quantized and all(held),
+          "one step's compressed gradients equal the plain round trip bit "
+          "for bit")
+    for k in ("quant_pack_op", "dequant_unpack_op"):
+        check(counts[k] == TRAIN_STEPS * quantized,
+              f"{k} launched once per quantized leaf per step")
+    del params, opt, step, compress, m
+    torch.cuda.empty_cache()
+    return counts
+
+
+POD_KV_BITS = (16, 8, 4)
+
+
+def pod_main(torch, rank: int, init: str, dev=None) -> int:
+    """One pod of phase 7c's two-process gloo group on cuda:0: ship this
+    pod's 1024-token llama3.1-8b KV to the other pod at each bits, sync one
+    layer's gradients, and hold both against their plain versions.  Prints
+    one JSON line; any failure raises."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.grad_compress import (
+        make_cross_pod_grad_sync)
+    from repro_torch.distribution.kv_transfer import (
+        make_kv_transfer, transfer_wire_bytes)
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.transformer import init_cache, param_shapes
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=2)
+    cfg = get_config(ARCH)
+    other = 1 - rank
+
+    def cache_of(pod):
+        gen = torch.Generator(device=dev).manual_seed(100 + pod)
+        c = init_cache(cfg, 1, SEQ, device=dev)
+        for _, x in flatten(c):
+            x.copy_(torch.randn(x.shape, generator=gen, device=dev))
+        return c
+
+    def grads_of(pod):
+        gen = torch.Generator(device=dev).manual_seed(200 + pod)
+        layer = {k: {n: s[1:] for n, s in sub.items()}
+                 for k, sub in param_shapes(cfg)["blocks"]["layer0"].items()}
+        return {k: {n: torch.randn(s, generator=gen, device=dev) * 1e-3
+                    for n, s in sub.items()} for k, sub in layer.items()}
+
+    out = {"rank": rank}
+    mine, theirs = cache_of(rank), cache_of(other)
+    reset_launches()
+    for bits in POD_KV_BITS:
+        fn = make_kv_transfer(None, bits=bits, group=GROUP)
+        got = fn(mine)
+        for (path, a), (_, b) in zip(flatten(got), flatten(theirs)):
+            want = b if bits == 16 else plain_roundtrip(b, bits, b.dtype)
+            check(a.dtype == b.dtype and torch.equal(a, want),
+                  f"pod {rank} kv bits {bits} {'/'.join(path)}")
+        check(fn.wire_bytes == transfer_wire_bytes(mine, bits, GROUP),
+              "bytes sent equal transfer_wire_bytes")
+        ms = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(mine)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"kv{bits}"] = {"wire_bytes": fn.wire_bytes,
+                            "ms": statistics.median(ms)}
+    g_mine, g_theirs = grads_of(rank), grads_of(other)
+    sync = make_cross_pod_grad_sync(None, bits=TRAIN_BITS, group=GROUP)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = sync(g_mine)
+    torch.cuda.synchronize()
+    out["sync_ms"] = (time.perf_counter() - t0) * 1e3
+    two = torch.full((), 2.0, device=dev)
+    for (path, a), (_, g), (_, h) in zip(flatten(avg), flatten(g_mine),
+                                         flatten(g_theirs)):
+        want = (g.float()
+                + plain_roundtrip(h, TRAIN_BITS, torch.float32)) / two
+        check(torch.equal(a, want), f"pod {rank} grad sync {path}")
+    out["sync_elements"] = sum(g.numel() for _, g in flatten(g_mine))
+    torch.cuda.synchronize()
+    out["launches"] = launches()
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def cross_pod_phase(torch):
+    """Phase 7c: pod_main in two processes; returns their launch counts,
+    summed."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--pod", str(r),
+             "--pod-init", str(Path(d) / "init")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+        results = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0,
+                  f"pod process exit {p.returncode}:\n{err[-4000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    counts = {}
+    for r in results:
+        for k, n in r["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+        for bits in POD_KV_BITS:
+            kv = r[f"kv{bits}"]
+            print(f"phase 7c pod {r['rank']}: KV of one {SEQ}-token request "
+                  f"at bits {bits}: {kv['wire_bytes']} bytes sent, "
+                  f"{kv['ms']:.2f} ms per transfer (median of 3)")
+        print(f"phase 7c pod {r['rank']}: one layer's gradients "
+              f"({r['sync_elements']} f32), {TRAIN_BITS}-bit ring sync "
+              f"{r['sync_ms']:.2f} ms")
+    print(f"phase 7c: bit for bit against the plain versions in both pods; "
+          f"{time.perf_counter() - t0:.2f} s wall; launches {counts}")
+    for k in ("quant_pack_op", "dequant_unpack_op"):
+        check(counts[k] > 0, f"{k} launched on the cross-pod paths")
+    return counts
+
+
 def main(argv) -> int:
     import argparse
 
@@ -2450,12 +2811,17 @@ def main(argv) -> int:
                          "tree's, in turns")
     ap.add_argument("--attention-times", type=Path, default=None,
                     help=argparse.SUPPRESS)   # one turn of --baseline
+    ap.add_argument("--pod", type=int, default=None,
+                    help=argparse.SUPPRESS)   # one pod of phase 7c
+    ap.add_argument("--pod-init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if args.pod is not None:
+        return pod_main(torch, args.pod, args.pod_init)
     if args.attention_times is not None:
         sys.path.insert(0, str(args.attention_times))
         from repro_torch.kernels import ops
@@ -2581,13 +2947,26 @@ def main(argv) -> int:
 
     # ---- 6. trace-driven KV-disaggregated cluster ----
     counts = cluster_phase(torch, dev, cfg, params)
-    phase6 = {"quant_pack": counts["quant_pack_op"],
-              "dequant_unpack": counts["dequant_unpack_op"],
-              "paged_attention": counts["paged_attention_arena_op"],
-              "paged_verify_attention":
-                  counts["paged_verify_attention_arena_op"],
-              "hadamard": counts["hadamard_op"],
-              "decode_attention": counts["decode_attention_op"]}
+    # the wrapper each kernel's serving path launches it through
+    op_of = {"quant_pack": "quant_pack_op",
+             "dequant_unpack": "dequant_unpack_op",
+             "paged_attention": "paged_attention_arena_op",
+             "paged_verify_attention": "paged_verify_attention_arena_op",
+             "hadamard": "hadamard_op",
+             "decode_attention": "decode_attention_op"}
+    phase6 = {k: counts[op] for k, op in op_of.items()}
+
+    # ---- 7. training, checkpoints and the cross-pod paths ----
+    del params, rt, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 7: {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+          f"GiB allocated")
+    t7 = time.perf_counter()
+    per_part = [reference_training(torch, dev),
+                full_width_training(torch, dev), cross_pod_phase(torch)]
+    print(f"phase 7: {time.perf_counter() - t7:.2f} s wall")
+    phase7 = {k: sum(c[op] for c in per_part) for k, op in op_of.items()}
 
     meta = {
         "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
@@ -2610,7 +2989,7 @@ def main(argv) -> int:
     for k, (src, replaces) in meta.items():
         entry = {"name": k, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[k],
-                 "phase6_launches": phase6[k]}
+                 "phase6_launches": phase6[k], "phase7_launches": phase7[k]}
         entry.update(results[k])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

@@ -7,13 +7,16 @@ The counterpart of the JAX package's ``core/quality.py``.  Caches and
 pools are updated in place (the JAX package returns new arrays); the step
 functions are plain closures where the JAX package jits.  The quality
 functions run on the device of the reference parameters, and their
-compressed-KV decode goes through the pipeline's device stages.  The
-reference model's training is not ported yet: :func:`get_reference_model`
-loads the cached weights and raises when they are missing.
+compressed-KV decode goes through the pipeline's device stages.
+:func:`get_reference_model` loads the cached ``tiny-lm`` weights and,
+when the cache file is missing, trains them on the given device
+(:func:`train_reference_model`) and writes the file, in the layout the
+JAX package reads.
 """
 from __future__ import annotations
 
 import os
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -24,7 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.kvcache import KVCache
 from repro_torch.core.pipeline import CompressionPipeline, DeviceKVCache
 from repro_torch.core.strategy import StrategyConfig, is_identity
-from repro_torch.data.synthetic import WORKLOADS, make_prompt
+from repro_torch.data.synthetic import WORKLOADS, make_batch, make_prompt
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.layers import PagedKV
 
@@ -34,29 +37,65 @@ REF_STEPS = int(os.environ.get("REPRO_REF_STEPS", "400"))
 
 
 # ---------------------------------------------------------------------------
-# Reference model (trained by the JAX package, cached to disk)
+# Reference model (trained once, cached to disk)
 # ---------------------------------------------------------------------------
 def _params_path(steps: int) -> Path:
     return CACHE_DIR / f"tiny_lm_s{steps}.npz"
 
 
+def train_reference_model(steps: int = REF_STEPS, seed: int = 0,
+                          batch: int = 16, seq: int = 256,
+                          log_every: int = 0, device="cuda"):
+    """Train tiny-lm on the mixed workload soup from the port's seeded
+    init (f32 masters) on ``device``; returns (cfg, params, last loss,
+    AdamW state).  The JAX package's schedule and batches (its init draws
+    other numbers); it returns the first three, and the state lets a
+    caller checkpoint the run or go on with it."""
+    from repro_torch.distribution.optimizer import OptConfig, init_opt_state
+    from repro_torch.distribution.steps import make_train_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("tiny-lm")
+    params = init_params(cfg, seed=seed, device=device)
+    oc = OptConfig(lr=3e-3, warmup_steps=max(steps // 10, 10),
+                   total_steps=steps, schedule="cosine", weight_decay=0.01)
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, oc, remat=False)
+    loss = None
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tokens, mask = make_batch("mixed", batch, seq, seed=seed * 100003 + i)
+        b = {"tokens": torch.as_tensor(tokens).to(device),
+             "mask": torch.as_tensor(mask[:, 1:]).to(device)}
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        loss = metrics["loss"]
+        if log_every and (i + 1) % log_every == 0:
+            print(f"step {i+1}/{steps} loss={float(loss):.3f} "
+                  f"({(time.perf_counter() - t0) / (i + 1) * 1e3:.1f} "
+                  f"ms/step)")
+    return cfg, params, float(loss), opt_state
+
+
 def get_reference_model(steps: int = REF_STEPS, seed: int = 0,
                         device="cuda"):
-    """Load the cached ``tiny-lm`` reference weights (``arr_i`` in the JAX
-    tree's sorted-key flatten order) onto ``device``.  Raises
-    FileNotFoundError when the cache is missing: training is not ported."""
-    from repro_torch.models.convert import from_flat_arrays
+    """The ``tiny-lm`` reference weights on ``device``: loaded from the
+    cache file (``arr_i`` in the JAX tree's sorted-key flatten order), or
+    trained on first use and written there, so either package loads a
+    file the other wrote."""
+    from repro_torch.models.convert import from_flat_arrays, leaves
 
-    del seed  # the cache file is keyed by steps, as in the JAX package
     cfg = get_config("tiny-lm")
     path = _params_path(steps)
-    if not path.exists():
-        raise FileNotFoundError(
-            f"{path} is missing; train it with the JAX package "
-            f"(repro.core.quality.get_reference_model)")
-    with np.load(path) as data:
-        arrays = [data[f"arr_{i}"] for i in range(len(data.files))]
-    return cfg, from_flat_arrays(arrays, cfg, device)
+    if path.exists():
+        with np.load(path) as data:
+            arrays = [data[f"arr_{i}"] for i in range(len(data.files))]
+        return cfg, from_flat_arrays(arrays, cfg, device)
+    cfg, params, _, _ = train_reference_model(steps=steps, seed=seed,
+                                              device=device)
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{f"arr_{i}": x.detach().cpu().numpy()
+                      for i, x in enumerate(leaves(params))})
+    return cfg, params
 
 
 # ---------------------------------------------------------------------------

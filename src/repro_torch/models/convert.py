@@ -28,6 +28,21 @@ def flatten(tree, prefix: Path = ()) -> Iterator[Tuple[Path, Any]]:
         yield prefix, tree
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and the matching leaves of
+    ``rest``, keeping the structure (empty subtrees included).  Leaves
+    are visited in flatten order (sorted keys)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def leaves(tree) -> List[Any]:
+    """The leaves in the JAX tree's flatten order."""
+    return [leaf for _, leaf in flatten(tree)]
+
+
 def unflatten(pairs) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for path, leaf in pairs:

@@ -1,6 +1,7 @@
 """The decoder stack in PyTorch: (optional prefix layers) + repeated layer
 blocks, the dense-attention subset of the JAX package's
-``models/transformer.py``.
+``models/transformer.py``: the training forward, prefill and the decode
+step.
 
 Parameters and caches keep the JAX package's ``{"prefix", "blocks"}``
 layout, with block leaves stacked on a leading ``n_blocks`` axis; where the
@@ -10,11 +11,13 @@ serving arena in device memory.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
@@ -177,10 +180,31 @@ def _apply_layer(lp, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
     return x, kv
 
 
+def _run_block(params, cfg: ModelConfig, plan: StackPlan, blk: int, x, *,
+               positions, caches, cache_pos, on_kv):
+    """Block ``blk``'s period layers (one step of the JAX package's scan)."""
+    bp = _block(params["blocks"], blk)
+    for j, spec in enumerate(plan.period_specs):
+        name = f"layer{j}"
+        c_in = (_block(caches["blocks"][name], blk)
+                if caches is not None else None)
+        x, kv = _apply_layer(bp[name], cfg, spec, x, positions=positions,
+                             cache=c_in, cache_pos=cache_pos)
+        on_kv("blocks", name, blk, kv)
+    return x
+
+
+def _drop_kv(part, name, blk, kv) -> None:
+    """The training forward keeps no cache."""
+
+
 def _run_stack(params, cfg: ModelConfig, plan: StackPlan, x, *, positions,
-               caches=None, cache_pos=None, on_kv=None):
+               caches=None, cache_pos=None, on_kv=None, remat: bool = False):
     """Run prefix + blocks; ``on_kv(part, name, block, kv)`` receives each
-    attention layer's kv (prefill) or new-token update (decode)."""
+    attention layer's kv (prefill) or new-token update (decode).
+    ``remat`` recomputes each block in the backward pass instead of
+    keeping its activations (``jax.checkpoint`` on the JAX package's scan
+    body); it runs a block twice, so only the training forward sets it."""
     for i, spec in enumerate(plan.prefix_specs):
         name = f"layer{i}"
         c_in = caches["prefix"][name] if caches is not None else None
@@ -189,14 +213,11 @@ def _run_stack(params, cfg: ModelConfig, plan: StackPlan, x, *, positions,
                              cache_pos=cache_pos)
         on_kv("prefix", name, None, kv)
     for blk in range(plan.n_blocks):
-        bp = _block(params["blocks"], blk)
-        for j, spec in enumerate(plan.period_specs):
-            name = f"layer{j}"
-            c_in = (_block(caches["blocks"][name], blk)
-                    if caches is not None else None)
-            x, kv = _apply_layer(bp[name], cfg, spec, x, positions=positions,
-                                 cache=c_in, cache_pos=cache_pos)
-            on_kv("blocks", name, blk, kv)
+        run = functools.partial(_run_block, params, cfg, plan, blk,
+                                positions=positions, caches=caches,
+                                cache_pos=cache_pos, on_kv=on_kv)
+        x = (torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+             if remat else run(x))
     return x
 
 
@@ -205,6 +226,24 @@ def _run_stack(params, cfg: ModelConfig, plan: StackPlan, x, *, positions,
 # ---------------------------------------------------------------------------
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return L.embed_tokens(params["embed"], tokens).to(COMPUTE_DTYPE)
+
+
+def forward(cfg: ModelConfig, params, batch, remat: bool = False):
+    """Full-sequence forward (training): ``batch["tokens"]`` (B, S).
+    Returns (logits (B, S, V) f32, aux): the dense stack has no auxiliary
+    loss, so ``aux`` is an f32 zero.  Nothing on this path writes in place,
+    so autograd runs through it."""
+    plan = plan_stack(cfg)
+    _check_supported(cfg, plan)
+    x = _embed(params, batch["tokens"])
+    bsz, seq = x.shape[0], x.shape[1]
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device=x.device)[None].expand(bsz, seq)
+    x = _run_stack(params, cfg, plan, x, positions=positions,
+                   on_kv=_drop_kv, remat=remat)
+    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    logits = L.unembed(params["embed"], cfg, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int):

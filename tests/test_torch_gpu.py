@@ -734,3 +734,90 @@ def test_device_hadamard_stage_keeps_the_host_wire_bytes(cuda):
     assert launches()["hadamard_op"] == 4
     np.testing.assert_array_equal(restored.k.cpu().numpy(), host.k)
     np.testing.assert_array_equal(restored.v.cpu().numpy(), host.v)
+
+
+# ---------------------------------------------------------------------------
+# training and the cross-pod paths: the quantizer round trip through the
+# kernels, bit for bit against the plain version on the host
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", [(3, 4, 128), (64,), (5, 32), (4096, 192)])
+def test_grad_roundtrip_kernels_equal_plain(cuda, bits, shape):
+    from repro_torch.distribution.grad_compress import _quant_roundtrip
+
+    n, d = int(np.prod(shape)), shape[-1]
+    x = boundary_rows(n // d, d, min(64, d), bits, False,
+                      seed=n).reshape(shape)
+    reset_launches()
+    got = _quant_roundtrip(torch.from_numpy(x).to(cuda), bits, 64)
+    want = _quant_roundtrip(torch.from_numpy(x), bits, 64)
+    assert launches()["quant_pack_op"] == launches()["dequant_unpack_op"] == 1
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_odd_group_on_the_card_raises(cuda):
+    """The kernels take even groups only; a card tensor with an odd group
+    is refused, not quantized by the plain version."""
+    from repro_torch.distribution.grad_compress import _quant_roundtrip
+
+    x = torch.ones(7, 3, device=cuda)
+    reset_launches()
+    with pytest.raises(ValueError):
+        _quant_roundtrip(x, 8, 64)
+    assert launches()["quant_pack_op"] == 0
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_sym_kernels_equal_plain(cuda, bits, dtype):
+    from repro_torch.distribution.kv_transfer import (
+        dequantize_sym, quantize_sym)
+
+    x = torch.from_numpy(boundary_rows(
+        96, 128, 64, bits, dtype == torch.bfloat16, seed=bits)).to(dtype)
+    x = x.reshape(2, 48, 128)
+    q, s = quantize_sym(x.to(cuda), bits, 64)
+    wq, ws = quantize_sym(x, bits, 64)
+    assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws)
+    for out in (torch.bfloat16, torch.float32, torch.float16):
+        assert torch.equal(dequantize_sym(q, s, 64, dtype=out).cpu(),
+                           dequantize_sym(wq, ws, 64, dtype=out))
+
+
+def test_train_step_with_compression_launches_the_kernels(cuda, tmp_path):
+    """A reduced llama train step on the card: finite loss, quant_pack
+    and dequant_unpack once per leaf; its state checkpoints
+    and restores onto the card (and onto the host) bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution.grad_compress import (
+        init_ef_state, make_grad_transform)
+    from repro_torch.distribution.optimizer import OptConfig, init_opt_state
+    from repro_torch.distribution.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import flatten
+
+    cfg = get_config("llama3.1-8b-reduced")
+    params = init_params(cfg, seed=0, device=cuda)
+    opt = init_opt_state(params)
+    opt["ef"] = init_ef_state(params)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1, total_steps=4),
+                           remat=True, grad_transform=make_grad_transform(8))
+    tokens, mask = make_batch("mixed", 2, 64, seed=0)
+    reset_launches()
+    params, opt, m = step(params, opt, {
+        "tokens": torch.as_tensor(tokens).to(cuda),
+        "mask": torch.as_tensor(mask[:, 1:]).to(cuda)})
+    n = len(list(flatten(params)))
+    assert np.isfinite(float(m["loss"]))
+    assert launches()["quant_pack_op"] == launches()["dequant_unpack_op"] == n
+    state = {"params": params, "opt": opt}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, state)
+    for dev in (cuda, torch.device("cpu")):
+        back = mgr.restore(state, device=dev)
+        for (path, a), (_, b) in zip(flatten(state), flatten(back)):
+            assert b.device.type == dev.type, path
+            assert torch.equal(a.cpu(), b.cpu()), path

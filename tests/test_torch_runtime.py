@@ -259,7 +259,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
             "repro_torch.kernels, repro_torch.models.convert, "
             "repro_torch.workloads, repro_torch.serving.simulator, "
-            "repro_torch.analysis.sanitize; "
+            "repro_torch.analysis.sanitize, repro_torch.distribution, "
+            "repro_torch.distribution.grad_compress, "
+            "repro_torch.distribution.kv_transfer, repro_torch.checkpoint, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
