@@ -122,9 +122,13 @@ def _leaf(caches, part, name, blk, key):
 
 def extract_kv(cfg, caches, batch_idx: int, upto: int) -> DeviceKVCache:
     """One batch element's attention KV as (L, H, S, D) tensors, left on
-    the caches' device in their dtype."""
+    the caches' device in their dtype.  An attention-free stack has no KV
+    to extract: refused, as the JAX package's fails on it."""
+    layers = _attn_layers(cfg)
+    if not layers:
+        raise NotImplementedError(f"{cfg.name}: no attention layers, no KV")
     ks, vs = [], []
-    for part, name, blk in _attn_layers(cfg):
+    for part, name, blk in layers:
         ks.append(_leaf(caches, part, name, blk, "k")[batch_idx, :upto]
                   .transpose(0, 1))
         vs.append(_leaf(caches, part, name, blk, "v")[batch_idx, :upto]

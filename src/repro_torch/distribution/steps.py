@@ -39,6 +39,9 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward(cfg, params, {**batch, "tokens": inputs},
                           remat=remat)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        # the vision prefix has no next-token targets
+        logits = logits[:, batch["patch_embeds"].shape[1]:, :]
     ce = cross_entropy(logits, targets, batch.get("mask"))
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 

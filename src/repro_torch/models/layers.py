@@ -1,12 +1,14 @@
-"""Transformer layers in PyTorch: the dense GQA subset of the JAX package's
-``models/layers.py`` that the serving path runs.
+"""Transformer layers in PyTorch: the JAX package's ``models/layers.py``.
 
-RMSNorm, RoPE, GQA attention with an online-softmax chunked path and
-``return_stats``, the attention sublayer's prefill and decode paths (the
-decode reads the cache read-only and merges the new token in closed form),
-the gated MLP, and token embedding / unembedding.  Compute dtype is bf16
-with f32 softmax and normalisation, and every cast point is the JAX
-package's: greedy argmax flips on 1-ulp differences.
+RMSNorm and qk-norm, RoPE and M-RoPE, GQA attention (softcap, sliding
+window) with an online-softmax chunked path and ``return_stats``, the
+attention sublayer's prefill, decode and cross-attention paths (the decode
+reads the cache read-only and merges the new token in closed form), the
+gated MLP, top-k MoE with capacity in both of the JAX package's forms
+(GShard one-hot dispatch and sorted scatter), and token embedding /
+unembedding with the final softcap.  Compute dtype is bf16 with f32
+softmax and normalisation, and every cast point is the JAX package's:
+greedy argmax flips on 1-ulp differences.
 
 The decode path reads either a dense cache ``{"k", "v"}`` (B, Smax, Hkv, D)
 or one layer of the paged arena (:class:`PagedKV`), which goes through the
@@ -22,6 +24,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import (
@@ -43,8 +46,17 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * (1.0 + params["scale"].float())).to(x.dtype)
 
 
+def rmsnorm_headdim(scale: torch.Tensor, x: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: rmsnorm over the head_dim axis of (B, S, H, D)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
@@ -61,10 +73,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     # f32 cos/sin, correctly rounded (through f64; the table is tiny)
     cos = torch.cos(angles.double()).float()[:, :, None, :]
     sin = torch.sin(angles.double()).float()[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): positions3 (3, B, S); frequency slots split
+    2:1:1 over the (temporal, height, width) position streams."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_frequencies(d, theta, device=x.device)
+    t_sec = half // 2
+    h_sec = (half - t_sec) // 2
+    # which position stream each frequency slot reads
+    sec_of = torch.cat([
+        torch.zeros(t_sec, dtype=torch.long),
+        torch.ones(h_sec, dtype=torch.long),
+        torch.full((half - t_sec - h_sec,), 2, dtype=torch.long),
+    ]).to(x.device)
+    pos = positions3.permute(1, 2, 0).float()              # (B, S, 3)
+    angles = pos[..., sec_of] * freqs                      # (B, S, half)
+    cos = torch.cos(angles.double()).float()[:, :, None, :]
+    sin = torch.sin(angles.double()).float()[:, :, None, :]
+    return _rotate(x, cos, sin)
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +111,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _mask_value() -> float:
     return torch.finfo(torch.float32).min
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return torch.tanh(x / cap) * cap
+    return x
 
 
 def _einsum_bf16(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -119,6 +164,7 @@ def multihead_attention(
     k_positions: torch.Tensor,
     causal: bool = True,
     window: int = 0,
+    softcap: float = 0.0,
     kv_valid: Optional[torch.Tensor] = None,
     chunk: int = ATTN_CHUNK,
     return_stats: bool = False,
@@ -136,6 +182,7 @@ def multihead_attention(
 
     if sk <= chunk or sq == 1:
         scores = _einsum_bf16("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+        scores = _softcap(scores, softcap)
         mask = attention_scores_mask(q_positions, k_positions, causal,
                                      window, kv_valid)
         mask = mask if mask.dim() == 3 else mask[None]   # (B|1, Sq, Sk)
@@ -160,6 +207,7 @@ def multihead_attention(
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
         s = _einsum_bf16("bqhgd,bkhd->bhgqk", qg, k[:, sl]).float() * scale
+        s = _softcap(s, softcap)
         mask = attention_scores_mask(q_positions, k_positions[sl], causal,
                                      window, kv_valid)
         mask = mask if mask.dim() == 3 else mask[None]
@@ -199,35 +247,56 @@ def apply_attention(
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, d)
     *,
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S), or (3, B, S) for M-RoPE
     causal: bool = True,
     local: bool = False,
     cache=None,
     cache_pos: Optional[torch.Tensor] = None,
+    xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention sublayer.  Returns (out, new_cache).
+    """Attention sublayer.  Returns (out, new_cache).
 
-      - prefill: cache None -> causal attention over x, new_cache {"k","v"}
+      - prefill / training: cache None -> attention over x, new_cache
+        {"k","v"}
       - decode: cache {"k","v"} (B, Smax, Hkv, D) or :class:`PagedKV`,
-        ``cache_pos`` (B,) per-slot positions of the S tokens' first;
-        new_cache {"k_new","v_new"} (B, S, Hkv, D)
+        ``cache_pos`` the S tokens' first position: a scalar (every row
+        at the same position) or (B,) per slot; new_cache
+        {"k_new","v_new"} (B, S, Hkv, D)
+      - cross-attention: ``xattn_kv`` the precomputed (k, v) of the
+        encoder output; q is not rotated and nothing is cached
     """
-    if cfg.qk_norm or cfg.mrope or cfg.attn_softcap:
-        raise NotImplementedError("the port's attention covers dense GQA")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    cap = cfg.attn_softcap
     xc = x.to(COMPUTE_DTYPE)
     q = _einsum_bf16("bsd,dhk->bshk", xc, params["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm_headdim(params["q_norm"], q, cfg.rmsnorm_eps)
     window = cfg.sliding_window if local else 0
+
+    if xattn_kv is not None:
+        k, v = xattn_kv
+        out = multihead_attention(
+            q, k, v,
+            q_positions=torch.arange(s, dtype=torch.int32, device=x.device),
+            k_positions=torch.arange(k.shape[1], dtype=torch.int32,
+                                     device=x.device),
+            causal=False, softcap=cap)
+        y = _einsum_bf16("bshk,hkd->bsd", out, params["wo"])
+        return y.to(x.dtype), None
+
     k = _einsum_bf16("bsd,dhk->bshk", xc, params["wk"])
     v = _einsum_bf16("bsd,dhk->bshk", xc, params["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        k = rmsnorm_headdim(params["k_norm"], k, cfg.rmsnorm_eps)
+    rotate = apply_mrope if cfg.mrope else apply_rope
+    q = rotate(q, positions, cfg.rope_theta)
+    k = rotate(k, positions, cfg.rope_theta)
 
     if cache is None:
         pos1 = torch.arange(s, dtype=torch.int32, device=x.device)
         out = multihead_attention(q, k, v, q_positions=pos1, k_positions=pos1,
-                                  causal=causal, window=window)
+                                  causal=causal, window=window, softcap=cap)
         new_cache = {"k": k, "v": v}
     else:
         # Decode: the cache is READ-ONLY here; the new tokens' (k, v) merge
@@ -236,20 +305,27 @@ def apply_attention(
         # decode step; s > 1 is the speculative verify step, whose s new
         # tokens sit at positions cache_pos .. cache_pos+s-1 and attend to
         # each other under an intra-block causal mask.
-        if cache_pos is None or cache_pos.dim() != 1:
-            raise NotImplementedError("decode covers per-slot positions")
         hkv = k.shape[2]
         g = cfg.num_heads // cfg.kv_heads
         offs = torch.arange(s, dtype=torch.int32, device=x.device)
-        q_pos = cache_pos.to(torch.int32)[:, None] + offs[None, :]
+        if cache_pos.dim() == 1:
+            q_pos = cache_pos[:, None] + offs[None, :]    # (B, S) per slot
+        else:
+            q_pos = cache_pos + offs                      # (S,)
         if isinstance(cache, PagedKV):
+            # The arena kernels apply neither a window nor a softcap, so
+            # such a model would read wrong scores: refuse it.
             if window:
                 raise NotImplementedError("paged arena: no sliding window")
+            if cap:
+                raise NotImplementedError("paged arena: no attention softcap")
+            slot_pos = cache_pos.expand(b) if cache_pos.dim() == 0 \
+                else cache_pos
             if s == 1:
                 o, m, l = paged_attention_arena_op(
                     q.reshape(b, hkv, g, hd).contiguous(), cache.k, cache.v,
                     cache.k_codes, cache.k_scale, cache.v_codes,
-                    cache.v_scale, cache.block_tables, cache_pos,
+                    cache.v_scale, cache.block_tables, slot_pos,
                     cache.quant_lens)
                 out_old, m_old, l_old = o[:, :, :, None], m[..., None], \
                     l[..., None]
@@ -259,19 +335,20 @@ def apply_attention(
                     q.reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)
                     .contiguous(), cache.k, cache.v, cache.k_codes,
                     cache.k_scale, cache.v_codes, cache.v_scale,
-                    cache.block_tables, cache_pos, cache.quant_lens)
+                    cache.block_tables, slot_pos, cache.quant_lens)
         else:
             smax = cache["k"].shape[1]
             k_pos = torch.arange(smax, dtype=torch.int32, device=x.device)
             out_old, m_old, l_old = multihead_attention(
                 q, cache["k"], cache["v"], q_positions=q_pos,
-                k_positions=k_pos, causal=True, window=window,
+                k_positions=k_pos, causal=True, window=window, softcap=cap,
                 kv_valid=cache_pos, return_stats=True,
             )  # (b,h,g,S,dh), (b,h,g,S), (b,h,g,S)
         qg = q.reshape(b, s, hkv, g, hd)
         scale = 1.0 / math.sqrt(hd)
         if s == 1:
-            s_new = _einsum_bf16("bqhgd,bqhd->bhgq", qg, k).float() * scale
+            s_new = _einsum_bf16("bqhgd,bqhd->bhgq", qg, k).float()
+            s_new = _softcap(s_new * scale, cap)
             m_new = torch.maximum(m_old, s_new)
             alpha = torch.exp(m_old - m_new)
             p_new = torch.exp(s_new - m_new)
@@ -283,7 +360,8 @@ def apply_attention(
             # Intra-block attention of the s new tokens over themselves:
             # query row i sees new token j iff j <= i (positions are
             # consecutive, so the sliding window reduces to j > i - w).
-            s_blk = _einsum_bf16("bqhgd,bjhd->bhgqj", qg, k).float() * scale
+            s_blk = _einsum_bf16("bqhgd,bjhd->bhgqj", qg, k).float()
+            s_blk = _softcap(s_blk * scale, cap)
             blk_ok = offs[None, :] <= offs[:, None]           # (Sq, Sj)
             if window and window > 0:
                 blk_ok = blk_ok & (offs[None, :] > offs[:, None] - window)
@@ -318,6 +396,166 @@ def apply_mlp(params, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _silu_bf16(g: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` of a bf16 tensor in f32, rounded back to bf16."""
+    gf = g.float()
+    return (gf * torch.sigmoid(gf)).to(COMPUTE_DTYPE)
+
+
+def _experts(params, buf: torch.Tensor, spec: str) -> torch.Tensor:
+    """Every expert's gated MLP on its dispatch buffer ``buf`` (``spec``
+    names its axes, expert axis ``e`` and model axis ``d`` last), in
+    plain bf16 products: the JAX package computes this outside any
+    kernel."""
+    lhs = spec[:-1]
+    g = _einsum_bf16(f"{spec},edf->{lhs}f", buf, params["wi_gate"])
+    u = _einsum_bf16(f"{spec},edf->{lhs}f", buf, params["wi_up"])
+    h = _silu_bf16(g) * u
+    return _einsum_bf16(f"{lhs}f,efd->{spec}", h, params["wo"])
+
+
+def moe_route(params, cfg: ModelConfig, x: torch.Tensor):
+    """The router over x (..., d): (probs (..., E) f32, top_w (..., k)
+    renormalised, top_ids (..., k)).  Ties in the probabilities (frequent:
+    the logits are a bf16 product) break as ``jax.lax.top_k`` breaks
+    them, lower expert index first, through a stable descending sort;
+    ``torch.topk`` promises no order among equal values."""
+    k = cfg.experts_per_token
+    logits = _einsum_bf16("...d,de->...e", x, params["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_ids = vals[..., :k], ids[..., :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_w, top_ids
+
+
+def _einsum_queue(cfg: ModelConfig, top_ids: torch.Tensor):
+    """The einsum form's dispatch: tokens queue per batch row along S,
+    earlier tokens first.  Returns (mask (B, S, E) f32 membership, pos
+    (B, S, E) queue positions, keep (B, S, E) bool, cap)."""
+    s = top_ids.shape[1]
+    cap = max(int(math.ceil(s * cfg.experts_per_token / cfg.num_experts
+                            * cfg.capacity_factor)), 1)
+    cap = min(cap, s)
+    # experts are distinct within a token's top-k
+    mask = F.one_hot(top_ids, cfg.num_experts).float().sum(dim=2)
+    pos = torch.cumsum(mask, dim=1) - mask
+    return mask, pos, (pos < cap) & (mask > 0), cap
+
+
+def _sort_queue(cfg: ModelConfig, top_ids: torch.Tensor):
+    """The sort form's dispatch: the T·k assignments of ``top_ids`` (T, k)
+    sorted stably by expert, each expert's queue in token order.  Returns
+    (sort_idx, sorted_ids, counts (E,), pos_in_expert, keep, cap), the
+    last three per sorted assignment."""
+    t, k = top_ids.shape
+    cap = max(int(math.ceil(t * k / cfg.num_experts
+                            * cfg.capacity_factor)), 1)
+    flat_ids = top_ids.reshape(-1)
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[sort_idx]
+    counts = torch.bincount(flat_ids, minlength=cfg.num_experts)
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos_in_expert = (torch.arange(t * k, device=top_ids.device)
+                     - starts[sorted_ids])
+    return (sort_idx, sorted_ids, counts, pos_in_expert,
+            pos_in_expert < cap, cap)
+
+
+def moe_assignments(params, cfg: ModelConfig, x: torch.Tensor):
+    """(top_ids (B, S, k), kept (B, S, k) bool): which (token, expert)
+    assignments of x (B, S, d) ``apply_moe`` routes and which of them its
+    capacity keeps, in ``cfg.moe_impl``'s queue."""
+    b, s, _ = x.shape
+    _, _, top_ids = moe_route(params, cfg, x)
+    if cfg.moe_impl == "einsum":
+        keep = _einsum_queue(cfg, top_ids)[2]
+        return top_ids, keep.gather(2, top_ids)
+    sort_idx, *_, keep, _ = _sort_queue(cfg, top_ids.reshape(b * s, -1))
+    kept = torch.empty_like(keep).index_copy(0, sort_idx, keep)
+    return top_ids, kept.reshape(top_ids.shape)
+
+
+def apply_moe(params, cfg: ModelConfig, x: torch.Tensor):
+    """Top-k MoE with capacity, ``cfg.moe_impl`` choosing the form:
+    "einsum" (GShard one-hot dispatch and combine; tokens queue per batch
+    row along S) or "sort" (capacity-sorted scatter and gather; tokens
+    queue over all B·S).  Returns (y, aux): aux is the Switch-style
+    load-balancing loss."""
+    if cfg.moe_impl == "einsum":
+        return _apply_moe_einsum(params, cfg, x)
+    return _apply_moe_sort(params, cfg, x)
+
+
+def _apply_moe_einsum(params, cfg: ModelConfig, x: torch.Tensor):
+    e, k = cfg.num_experts, cfg.experts_per_token
+    probs, top_w, top_ids = moe_route(params, cfg, x)
+    mask, pos, keep, cap = _einsum_queue(cfg, top_ids)
+    # (B, S, E) gate weights
+    gates_e = (F.one_hot(top_ids, e).float() * top_w[..., None]).sum(dim=2)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(dim=(0, 1))
+    ce = mask.mean(dim=(0, 1)) / k
+    aux = (me * ce).sum() * e
+
+    # a dropped token's one-hot row is zeroed by ``keep``, as
+    # ``jax.nn.one_hot`` of an index past ``cap`` is
+    disp = keep[..., None] * F.one_hot(pos.long().clamp(max=cap - 1),
+                                       cap).to(COMPUTE_DTYPE)  # (B,S,E,C)
+    xb = x.to(COMPUTE_DTYPE)
+    buf = _einsum_bf16("bsec,bsd->becd", disp, xb)           # (B, E, C, d)
+    yb = _experts(params, buf, "becd")
+    combine = (disp.float() * gates_e[..., None]).to(COMPUTE_DTYPE)
+    y = _einsum_bf16("becd,bsec->bsd", yb, combine)
+    if "shared" in params:
+        y = y + apply_mlp(params["shared"], xb).to(COMPUTE_DTYPE)
+    return y.to(x.dtype), aux
+
+
+def _apply_moe_sort(params, cfg: ModelConfig, x: torch.Tensor):
+    """Sorted capacity-based top-k MoE (drop on overflow)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, top_w, top_ids = moe_route(params, cfg, xt)
+    sort_idx, sorted_ids, counts, pos_in_expert, keep, cap = _sort_queue(
+        cfg, top_ids)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(dim=0)
+    ce = counts.float() / (t * k)
+    aux = (me * ce).sum() * e
+
+    slot = sorted_ids * cap + torch.clamp(pos_in_expert, max=cap - 1)
+    token_of = sort_idx // k
+    # Kept assignments own distinct slots and dropped ones add zeros, so
+    # the scatter-add is exact in any order.
+    gathered = xt[token_of].to(COMPUTE_DTYPE) * keep[:, None]
+    buf = torch.zeros((e * cap, d), dtype=COMPUTE_DTYPE, device=x.device)
+    buf = buf.index_add(0, slot, gathered)
+    yb = _experts(params, buf.reshape(e, cap, d), "ecd")
+
+    y_flat = yb.reshape(e * cap, d)[slot] * keep[:, None]    # (T*k, d)
+    w_sorted = top_w.reshape(-1)[sort_idx]
+    contrib = (y_flat.float() * w_sorted[:, None]).to(COMPUTE_DTYPE)
+    # The JAX package scatter-adds each token's k contributions into a
+    # bf16 zero buffer in sorted order, rounding after each add; sorted
+    # order within a token is its experts' ascending ids.  Summed here in
+    # that order, deterministically on any device.
+    per_tok = torch.empty_like(contrib).index_copy(0, sort_idx, contrib)
+    per_tok = per_tok.reshape(t, k, d)
+    order = torch.argsort(top_ids, dim=-1)                   # (T, k)
+    per_tok = per_tok.gather(1, order[..., None].expand(t, k, d))
+    y = per_tok[:, 0]
+    for j in range(1, k):
+        y = y + per_tok[:, j]
+    if "shared" in params:
+        y = y + apply_mlp(params["shared"], xt[None])[0].to(COMPUTE_DTYPE)
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
@@ -326,7 +564,6 @@ def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.final_softcap:
-        raise NotImplementedError("the port's unembed has no softcap")
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
-    return _einsum_bf16("bsd,dv->bsv", x, w).float()
+    logits = _einsum_bf16("bsd,dv->bsv", x, w).float()
+    return _softcap(logits, cfg.final_softcap)

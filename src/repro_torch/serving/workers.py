@@ -354,7 +354,14 @@ class PrefillWorker:
     # ------------------------------------------------------------------
     def prefill(self, req: Request, tokens: np.ndarray):
         """Real batch-1 prefill.  Returns ``(caches, first_token,
-        t_prefill)`` with ``t_prefill`` under the configured cost model."""
+        t_prefill)`` with ``t_prefill`` under the configured cost model.
+        Requests carry text prompts only, so an encoder-decoder model
+        (whose prefill needs audio frames) is refused, as the JAX
+        package's runtime fails on it."""
+        if self.model.cfg.encoder_decoder:
+            raise NotImplementedError(
+                f"{self.model.cfg.name}: the runtime serves text prompts; an "
+                "encoder-decoder model needs audio frames")
         pre1 = self._prefill_fn()
         dev = self.model.device
         batch = {"tokens": torch.as_tensor(np.asarray(tokens)[None, :],

@@ -620,6 +620,47 @@ def test_runtime_launches_every_kernel(cuda):
                for r in rt.completed)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "llama4-scout-17b-a16e", "qwen2-vl-72b"])
+def test_family_runtime_launches_every_kernel(cuda, arch):
+    """A reduced MoE (Gq 1 for deepseek, 2 for llama4-scout's reduced
+    heads) or M-RoPE model served PD-separated on the paged arena goes
+    through all three kernels, and its routing and positions run on the
+    card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import Profile
+    from repro_torch.core.strategy import StrategyConfig
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import GBPS, BandwidthTrace, SchedulerConfig
+    from repro_torch.serving.engine import RuntimeConfig, ServingRuntime
+
+    cfg = get_config(arch + "-reduced")
+    rt = ServingRuntime(
+        static_profile=Profile(StrategyConfig(
+            quantizer="uniform", key_bits=8, value_bits=8,
+            granularity="per_token", symmetric=True, group_size=16),
+            cr=2.0, s_enc=5e8, s_dec=5e8),
+        config=RuntimeConfig(seq=64, decode_tokens=6, mode="pd", paged=True,
+                             page_size=8, pd_inject_restored=True),
+        trace=BandwidthTrace.constant(100 * GBPS),
+        scheduler=SchedulerConfig(max_slots=4, max_prefills_per_step=2),
+        device=cuda)
+    rt.model_cfg = cfg
+    rt.params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    reset_launches()
+    for seed in (0, 1, 0):           # the third request is a pool hit
+        rt.submit("qalike", prompt_seed=seed)
+    rt.run()
+    counts = launches()
+    assert [r.pool_hit for r in sorted(rt.completed, key=lambda r: r.rid)] \
+        == [False, False, True]
+    assert counts["quant_pack_op"] >= 2 and counts["dequant_unpack_op"] >= 2
+    assert counts["paged_attention_arena_op"] > 0
+    for dw in rt.decode_workers:
+        dw.page_table.check()
+        assert dw.page_table.free_pages == dw.page_table.num_pages - 1
+
+
 def test_speculative_runtime_launches_the_verify_kernel(cuda):
     """A reduced llama3.1-8b served speculatively on the paged arena takes
     its verify steps through the verify kernel.  The two-model draft (the

@@ -158,7 +158,8 @@ def test_prefill_layers_match(models, prefilled):
     for blk in range(PT.plan_stack(cfg).n_blocks):
         lj = jax.tree_util.tree_map(lambda a: a[blk], jp["blocks"]["layer0"])
         lp = PT._block(pp["blocks"], blk)["layer0"]
-        got, kv = PT._apply_layer(lp, cfg, spec, _t(x), positions=_t(pos))
+        got, kv, _ = PT._apply_layer(lp, cfg, spec, _t(x),
+                                     positions=_t(pos))
         args = (lj, x, jnp.asarray(pos))
         layer = layer or _compile(lambda p, h, ps: JT._apply_layer(
             p, cfg, spec, h, positions=ps, mode="prefill", max_len=SEQ)[:2],
