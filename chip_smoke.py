@@ -32,12 +32,21 @@ is caught:
    chunk), each case launched twice and bit-equal; both arena entries
    (W = 1 and 5) at deepseek-moe-16b's shape (Hkv 16, Gq 1) and
    llama4-scout's (Hkv 8, Gq 5), equal to the plain version bit for bit
-   in two launches; and each arena entry's
-   two CUDA kernels (phase A, phase B) are timed by torch.profiler.  With
-   ``--baseline DIR`` (a checkout of another commit, e.g. the parent's
-   ``git archive``), the arena attention entries, decode_attention,
-   hadamard, quant_pack and dequant_unpack of DIR and of this tree are
-   timed at the main shapes in turns.
+   in two launches; both arena entries with gemma-2's softcap and sliding
+   window (cap 50, window 4096) at gemma2-9b's shape (Hkv 8, Gq 2, D
+   256) with kv_lens on both sides of the window, and at the window's and
+   the cap's edges (windows 1, 2, 16, 17, 40 and past the length, bounds
+   mid-chunk and on chunk edges, chunks and stages wholly below, verify
+   tokens that see nothing, kv_len 0, a cap with no window), each
+   launched twice and bit-equal; the arena entry also with never-used
+   slots (kv_len 0: m = -inf, l = 0, out = 0 in the kernel and its plain
+   version); and each arena entry's two CUDA kernels (phase A, phase B)
+   are timed by torch.profiler, at gemma2's shape windowed and not.
+   With ``--baseline DIR`` (a checkout of another commit, e.g. the
+   parent's ``git archive``), the arena attention entries (also by
+   device time, and their outputs held bit-equal to DIR's),
+   decode_attention, hadamard, quant_pack and dequant_unpack of DIR and
+   of this tree are timed at the main shapes in turns.
 3. Runtime: serve the pinned 8-request pattern PD-separated on the paged
    arena of ``llama3.1-8b`` at full width with seeded random bf16
    weights, count each kernel's launches on that run, check the paged
@@ -111,7 +120,20 @@ is caught:
    vision prefix) and a teacher-forced decode step held against the
    full forward's logits (atol 0.15, rtol 0.05 in units of the logits'
    RMS, equal argmax; MoE at capacity_factor 16), with ms per prefill and
-   per decode step.
+   per decode step; (c) ``gemma2-9b`` at full width and depth (42
+   layers, a 4,096-position window on every other one, attention cap 50,
+   final cap 30), served as phase 3 serves, first with phase 3's
+   1,024-token scenario, then with three 5,120-token prompts on three
+   slots (the runtime takes one prompt length a RuntimeConfig), so that
+   the arena entry cuts the local layers' window: every request
+   completes, breakdowns sum to JCT, page tables drain, the three
+   kernels launch, the arena entry with the cap on every layer and the
+   window on the local ones; one decode step at 5,120 positions through
+   the kernel against the plain path (phase 3's gate; the dense gathered
+   view printed beside it), one step's times and top kernels, cold TTFT
+   stages, peak memory; then a two-layer cut at full width served with
+   the two-model draft (``spec_k=4``), which must launch the verify entry
+   with the cap and the window.
 
 Prints per-request TTFT/JCT/wire bytes/breakdowns, the speculative run's
 verify steps, committed tokens and accept rates beside the plain run's
@@ -119,7 +141,7 @@ TTFT and JCT, phase 5's profiles and per-batch breakdowns, phase 6's
 per-request route, tier, TTFT, JCT and breakdown, its stores' tiers and
 the simulator's gap, phase 7's training and transfer numbers, phase 8's
 serving run and per-family checks, one JSON line of kernel results (with
-each kernel's launches in phases 6, 7 and 8),
+each kernel's launches in phases 6, 7, 8a and 8c),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Exits
 with an error, printing no result, when there is no CUDA device or the
@@ -129,6 +151,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import statistics
@@ -193,6 +216,13 @@ def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def rel_err(torch, a, b) -> float:
+    """max |a - b| / |b| over the elements, equal ones (also two -inf,
+    an empty row's m) counting 0."""
+    return float(torch.where(a == b, torch.zeros_like(a),
+                             (a - b).abs() / b.abs().clamp_min(1e-30)).max())
 
 
 def bf16_ulps(torch, a, b) -> int:
@@ -600,14 +630,14 @@ def arena_case(torch, dev, gen, pps, lens, qlens, released=()):
 
 def hold_arena(torch, ops, ref, args):
     """paged_attention_arena_op against its plain version on ``args``:
-    out within 2 bf16 ulps, m and l within 1e-5 relative.  Returns the
-    kernel's m and out's max |err|."""
+    out within 2 bf16 ulps, m and l within 1e-5 relative (an empty row's
+    m = -inf, l = 0, out = 0 in both).  Returns the kernel's m and out's
+    max |err|."""
     q, kp, *_, lens, qlens = args
     out, m, l = ops.paged_attention_arena_op(*args)
     r_out, r_m, r_l = ref.paged_attention_arena_ref(*args)
     ulps = bf16_ulps(torch, out, r_out)
-    m_rel = float(((m - r_m).abs() / r_m.abs().clamp_min(1e-30)).max())
-    l_rel = float(((l - r_l).abs() / r_l.abs().clamp_min(1e-30)).max())
+    m_rel, l_rel = rel_err(torch, m, r_m), rel_err(torch, l, r_l)
     err = float((out.float() - r_out.float()).abs().max())
     b, hkv, gq, d = q.shape
     print(f"paged_attention_arena B={b} Hkv={hkv} Gq={gq} D={d} "
@@ -677,16 +707,20 @@ def kernel_phase(torch, dev):
     # ---- the arena entry at phase 6's shape: CLUSTER_SLOTS slots over a
     # decode worker's own pool; a hit 19 tokens into decode, a cold slot 4
     # in, a hit at its first step, and a released slot (stale length, its
-    # block-table row on the scratch page).  Never-used slots, which the
-    # decode step also passes (kv_len 0, rows it discards), are left out:
-    # there the kernel returns m = -inf, l = 0 and out = 0 while the plain
-    # version's finfo(f32).min mask averages every position; both merge
-    # to the new token's own attention (exp(m - m_new) = 0).
+    # block-table row on the scratch page); then with two never-used
+    # slots, which the decode step also passes (kv_len 0: m = -inf, l = 0,
+    # out = 0 in the kernel and its plain version alike)
     pps6 = -(-(SEQ + CLUSTER_DECODE_TOKENS + 2) // PAGE_SIZE)
+    gen6 = torch.Generator(device=dev).manual_seed(6)
     hold_arena(torch, ops, ref, arena_case(
-        torch, dev, torch.Generator(device=dev).manual_seed(6), pps6,
+        torch, dev, gen6, pps6,
         lens=[SEQ + 19, SEQ + 4, SEQ, SEQ + CLUSTER_DECODE_TOKENS],
         qlens=[SEQ, 0, SEQ, 0], released=(3,)))
+    m6, _ = hold_arena(torch, ops, ref, arena_case(
+        torch, dev, gen6, pps6, lens=[SEQ + 19, 0, SEQ, 0],
+        qlens=[SEQ, 0, SEQ, 0], released=(3,)))
+    check(bool(torch.isneginf(m6[1]).all() and torch.isneginf(m6[3]).all()),
+          "kv_len 0 rows give m = -inf")
 
     # ---- paged_attention, Pallas interface: int8 / int4, scratch page ----
     pallas = {}
@@ -783,10 +817,7 @@ def verify_kernel_phase(torch, dev):
             out, m, l = ops.paged_verify_attention_arena_op(*args)
             r_out, r_m, r_l = ref.paged_verify_attention_arena_ref(*args)
             ulps = bf16_ulps(torch, out, r_out)
-            m_rel = float(((m - r_m).abs()
-                           / r_m.abs().clamp_min(1e-30)).max())
-            l_rel = float(((l - r_l).abs()
-                           / r_l.abs().clamp_min(1e-30)).max())
+            m_rel, l_rel = rel_err(torch, m, r_m), rel_err(torch, l, r_l)
             err = float((out.float() - r_out.float()).abs().max())
             print(f"paged_verify_attention_arena W={w} {residency}: out "
                   f"{ulps} bf16 ulps (max|err| {err:.3g}; tolerance 2 "
@@ -1254,8 +1285,7 @@ def repaired_shapes_phase(torch, dev):
     def hold_arena(label, got, want):
         (out, m, l), (r_out, r_m, r_l) = got, want
         ulps = bf16_ulps(torch, out, r_out)
-        m_rel = float(((m - r_m).abs() / r_m.abs().clamp_min(1e-30)).max())
-        l_rel = float(((l - r_l).abs() / r_l.abs().clamp_min(1e-30)).max())
+        m_rel, l_rel = rel_err(torch, m, r_m), rel_err(torch, l, r_l)
         print(f"{label}: out {ulps} bf16 ulps (tolerance 2), m rel "
               f"{m_rel:.3g}, l rel {l_rel:.3g} (tolerance 1e-5)")
         check(ulps <= 2 and m_rel <= 1e-5 and l_rel <= 1e-5, label)
@@ -1351,10 +1381,7 @@ def split_edges_phase(torch, dev):
             (out, m, l), same = twice(op, *args)
             r_out, r_m, r_l = plain(*args)
             ulps = bf16_ulps(torch, out, r_out)
-            m_rel = float(((m - r_m).abs()
-                           / r_m.abs().clamp_min(1e-30)).max())
-            l_rel = float(((l - r_l).abs()
-                           / r_l.abs().clamp_min(1e-30)).max())
+            m_rel, l_rel = rel_err(torch, m, r_m), rel_err(torch, l, r_l)
             print(f"split edges, arena W={w} {name} lengths: out {ulps} "
                   f"bf16 ulps (tolerance 2), m rel {m_rel:.3g}, l rel "
                   f"{l_rel:.3g} (tolerance 1e-5), two launches bit-equal: "
@@ -1440,6 +1467,210 @@ def family_shapes_phase(torch, dev):
             check(same and exact, f"{arch} arena W={w} bit for bit")
 
 
+# ---------------------------------------------------------------------------
+# Phase 2, continued: gemma-2's softcap and sliding window in the arena
+# ---------------------------------------------------------------------------
+GEMMA_ARCH, GEMMA_CAP, GEMMA_WINDOW = "gemma2-9b", 50.0, 4096
+GEMMA_HKV, GEMMA_GQ, GEMMA_D = 8, 2, 256          # archs.py:23-28
+# one step of five slots on both sides of the window, mixed residency
+GEMMA_LENS = [1024, 4095, 4096, 4097, 6000]
+GEMMA_QLENS = [1024, 0, 4096, 0, 4096]
+# the window's and the cap's edges at gemma-2's shape over 320-position
+# views (chunks of 16 positions, stages of 128): (W, window, cap,
+# kv_lens); a slot at kv_len 0 in most
+WINDOW_EDGES = {
+    "window 1 (every row empty)": (1, 1, 50.0, [0, 1, 17, 100, 319, 200]),
+    "window 2, no cap": (1, 2, 0.0, [0, 1, 17, 100, 319, 200]),
+    "window 16, bounds mid-chunk": (1, 16, 50.0, [0, 40, 100, 319, 24, 7]),
+    "window 17, bounds on chunk edges": (1, 17, 50.0,
+                                         [48, 64, 96, 0, 17, 1]),
+    "window 40, chunks and stages wholly below": (
+        1, 40, 50.0, [300, 319, 150, 160, 0, 41]),
+    "window past every length": (1, 4096, 50.0, [0, 1, 17, 100, 319, 200]),
+    "cap, no window": (1, 0, 50.0, [0, 1, 17, 100, 319, 200]),
+    "verify W=5, window 3 (tokens 2-4 see nothing)": (
+        5, 3, 50.0, [0, 40, 100, 315, 17, 200]),
+    "verify W=5, window 16": (5, 16, 50.0, [48, 64, 96, 315, 17, 1]),
+    "verify W=2, window 40, cap 2": (2, 40, 2.0, [300, 318, 150, 160, 0, 41]),
+}
+
+
+def gemma_case(torch, dev, gen, w, pps, lens, qlens):
+    """Arena entry inputs at gemma-2's shape (Hkv 8, Gq 2, D 256, pages of
+    PAGE_SIZE): len(lens) slots of pps pages over a permuted block table,
+    bf16 fp pools, int8 codes with group-GROUP scales broadcast per
+    channel, bf16 queries (B, Hkv, Gq, D) or (B, Hkv, Gq, W, D)."""
+    b = len(lens)
+    n_pages = b * pps + 1
+    shape = (n_pages, PAGE_SIZE, GEMMA_HKV, GEMMA_D)
+    kp, vp = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    kc, vc = (torch.randint(-128, 128, shape, generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand(shape[:-1] + (GEMMA_D // GROUP,), generator=gen,
+                          device=dev) * 0.02 + 1e-3).half().float()
+              .repeat_interleave(GROUP, -1) for _ in range(2))
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+          + 1).reshape(b, pps).to(torch.int32)
+    qshape = (b, GEMMA_HKV, GEMMA_GQ) + ((w,) if w > 1 else ()) + (GEMMA_D,)
+    q = torch.randn(qshape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    return q, kp, vp, kc, ks, vc, vs, bt, i32(lens), i32(qlens)
+
+
+def hold_window_cap(torch, label, args, window, cap):
+    """One arena entry (by q's rank) with ``window`` and ``cap`` against
+    its plain version on the card: launched twice, bit-equal; out within 2
+    bf16 ulps, m and l within 1e-5 relative, as the other arena holds
+    (the two agree to the bit where the plain version runs on the card:
+    torch.tanh is CUDA's tanhf there and its divide by a tensor the IEEE
+    one, as in the kernel).  Returns (out's bf16 ulps, max |err|, rows
+    that see nothing)."""
+    from repro_torch.kernels import ops, ref
+
+    op, plain = ((ops.paged_attention_arena_op, ref.paged_attention_arena_ref)
+                 if args[0].dim() == 4 else
+                 (ops.paged_verify_attention_arena_op,
+                  ref.paged_verify_attention_arena_ref))
+    first = op(*args, window=window, softcap=cap)
+    second = op(*args, window=window, softcap=cap)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    (out, m, l), (r_out, r_m, r_l) = first, plain(*args, window, cap)
+    ulps = bf16_ulps(torch, out, r_out)
+    m_rel, l_rel = rel_err(torch, m, r_m), rel_err(torch, l, r_l)
+    err = float((out.float() - r_out.float()).abs().max())
+    empty = int(torch.isneginf(m).sum())
+    check(empty == int(torch.isneginf(r_m).sum()), f"{label}: empty rows")
+    print(f"{label}: out {ulps} bf16 ulps (max|err| {err:.3g}; tolerance "
+          f"2), m rel {m_rel:.3g}, l rel {l_rel:.3g} (tolerance 1e-5), "
+          f"{empty} empty rows, two launches bit-equal: {same}")
+    check(ulps <= 2 and m_rel <= 1e-5 and l_rel <= 1e-5 and same, label)
+    return ulps, err, empty
+
+
+def window_bytes(lens, qlens, window, w, hkv, gq, d, pps):
+    """Bytes one arena call must move: each K and V row its rows see
+    (inside the window) once, as stored (2 B bf16, or 1 B code + 4 B
+    scale), q and out, m and l, the block table."""
+    kv = 0
+    for n, qn in zip(lens, qlens):
+        lo = max(0, n - window + 1) if window else 0
+        quant = max(0, min(qn, n) - lo)
+        kv += 2 * hkv * d * ((n - lo - quant) * 2 + quant * 5)
+    rows = len(lens) * hkv * gq * w
+    return kv + rows * d * 2 * 2 + rows * 8 + len(lens) * pps * 4
+
+
+def gemma_calls(torch, dev):
+    """{label: (call, args, window)}: both arena entries at gemma-2's
+    main shape (GEMMA_LENS, W 1 and 5), capped, windowed and not."""
+    from repro_torch.kernels import ops
+
+    calls = {}
+    pps = -(-(max(GEMMA_LENS) + 2 + SPEC_K) // PAGE_SIZE)
+    for w in (1, SPEC_K + 1):
+        gen = torch.Generator(device=dev).manual_seed(40 + w)
+        args = gemma_case(torch, dev, gen, w, pps, GEMMA_LENS, GEMMA_QLENS)
+        op = (ops.paged_attention_arena_op if w == 1 else
+              ops.paged_verify_attention_arena_op)
+        for window in (GEMMA_WINDOW, 0):
+            calls[f"W={w} window {window}"] = (
+                lambda args=args, window=window, op=op: op(
+                    *args, window=window, softcap=GEMMA_CAP), args, window)
+    return calls
+
+
+def window_cap_phase(torch, dev):
+    """Both arena entries with gemma-2's softcap and sliding window,
+    against their plain versions on the card: at gemma-2's shape (Hkv 8,
+    Gq 2, D 256, cap 50, window 4096) with kv_lens on both sides of the
+    window, W 1 and 5, then at WINDOW_EDGES; each launched twice,
+    bit-equal.  Times the main-shape calls windowed (against the byte
+    bound over the positions inside the window, and SDPA over the same
+    pre-dequantized view under the same mask) and each CUDA kernel's
+    device time windowed and not (cap only) at the same kv_lens: the
+    window's skip of the chunks and stages below it.  Returns
+    {"W=1": entry, "W=5": entry}."""
+    from repro_torch.kernels import ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pps = -(-(max(GEMMA_LENS) + 2 + SPEC_K) // PAGE_SIZE)
+    view = pps * PAGE_SIZE
+    out = {}
+    calls = gemma_calls(torch, dev)
+    for label, (call, args, window) in calls.items():
+        w = 1 if args[0].dim() == 4 else args[0].shape[3]
+        ulps, err, _ = hold_window_cap(
+            torch, f"{GEMMA_ARCH} shape (Hkv {GEMMA_HKV}, Gq {GEMMA_GQ}, D "
+            f"{GEMMA_D}) arena W={w}, cap {GEMMA_CAP:g}, window {window}, "
+            f"kv_lens {GEMMA_LENS}", args, window, GEMMA_CAP)
+        if window == 0:
+            continue
+        q, kp, vp, kc, ks, vc, vs, bt, lens, qlens = args
+        g = bt.long()
+        use_q = (torch.arange(view, device=dev)[None, :]
+                 < qlens[:, None])[..., None, None]
+        b = len(GEMMA_LENS)
+
+        def dense_view(pool, codes, scales):
+            deq = (codes.float() * scales).to(torch.bfloat16)[g]
+            return torch.where(
+                use_q, deq.reshape(b, view, GEMMA_HKV, GEMMA_D),
+                pool[g].reshape(b, view, GEMMA_HKV, GEMMA_D)).transpose(1, 2)
+
+        kview, vview = dense_view(kp, kc, ks), dense_view(vp, vc, vs)
+        qs = q.reshape(b, GEMMA_HKV * GEMMA_GQ, w, GEMMA_D)
+        pos = torch.arange(view, device=dev)
+        j = torch.arange(w, device=dev)[None, :, None]
+        mask = ((pos < lens[:, None, None])
+                & (pos > lens[:, None, None] + j - window))[:, None]
+        plain = (ref.paged_attention_arena_ref if w == 1 else
+                 ref.paged_verify_attention_arena_ref)
+        nbytes = window_bytes(GEMMA_LENS, GEMMA_QLENS, window, w, GEMMA_HKV,
+                              GEMMA_GQ, GEMMA_D, pps)
+        seen = sum(min(n, window - 1) for n in GEMMA_LENS)
+        entry = dict(
+            max_abs_err=err, ulps=ulps,
+            ms=time_ms(torch, call),
+            plain_ms=time_ms(torch, lambda: plain(*args, window, GEMMA_CAP),
+                             iters=3, warmup=1),
+            library_ms=time_ms(torch, lambda: sdpa(
+                qs, kview, vview, attn_mask=mask, enable_gqa=True)))
+        entry["bound_ms"], entry["bound_by"] = bound(
+            nbytes, 4 * GEMMA_GQ * w * GEMMA_HKV * GEMMA_D * seen)
+        out[f"W={w}"] = entry
+        del kview, vview
+    # the edges, each entry twice
+    for label, (w, window, cap, lens) in WINDOW_EDGES.items():
+        gen = torch.Generator(device=dev).manual_seed(len(label))
+        qlens = [min(n, q) for n, q in zip(lens, [0, 9, 100, 160, 0, 33])]
+        hold_window_cap(torch, f"window/cap edge, {label}: kv_lens {lens}",
+                        gemma_case(torch, dev, gen, w, 20, lens, qlens),
+                        window, cap)
+    times = attention_phase_times(torch, dev, {
+        k: c for k, (c, _, _) in calls.items()})
+    for w in (1, SPEC_K + 1):
+        win, full = times[f"W={w} window {GEMMA_WINDOW}"], \
+            times[f"W={w} window 0"]
+        out[f"W={w}"].update(
+            phase_a_ms=win["phase_a_ms"], phase_b_ms=win["phase_b_ms"],
+            unwindowed_phase_a_ms=full["phase_a_ms"],
+            unwindowed_phase_b_ms=full["phase_b_ms"])
+        saved = (full["phase_a_ms"] + full["phase_b_ms"]
+                 - win["phase_a_ms"] - win["phase_b_ms"])
+        print(f"{GEMMA_ARCH} shape arena W={w}: the window's skip saves "
+              f"{saved:.4f} ms of device time a call at kv_lens "
+              f"{GEMMA_LENS} ({out[f'W={w}']['ms']:.4f} ms a call "
+              f"windowed, bound {out[f'W={w}']['bound_ms']:.4f} ms over "
+              f"the positions inside the window, SDPA "
+              f"{out[f'W={w}']['library_ms']:.4f} ms, plain "
+              f"{out[f'W={w}']['plain_ms']:.2f} ms)")
+    return out
+
+
 def attention_main_calls(torch, dev, ops):
     """{"W=1": call, "W=2": call, "W=5": call}: the two arena attention
     entries at the main path's shapes (one decode step's layer read, W = 1;
@@ -1486,7 +1717,8 @@ def main_times(torch, dev, ops):
     at the main shape (``quant_main_calls``), through ``ops``; for the two
     main variants of the last (``QUANT_MAIN``) also the device time per
     call (``device_times``), under "<name> device"."""
-    calls = dict(attention_main_calls(torch, dev, ops))
+    attention = attention_main_calls(torch, dev, ops)
+    calls = dict(attention)
     calls.update(decode_main_call(torch, dev, ops)[0])
     calls.update(hadamard_main_calls(torch, dev, ops)[0])
     quant = quant_main_calls(torch, dev, ops)[0]
@@ -1494,21 +1726,31 @@ def main_times(torch, dev, ops):
     out = {k: time_ms(torch, fn) for k, fn in calls.items()}
     for k in QUANT_MAIN:
         out[f"{k} device"] = device_times(torch, quant[k])["device_ms"]
+    for k, fn in attention.items():
+        out[f"arena attention {k} device"] = device_times(
+            torch, fn)["device_ms"]
+    # the arena entries' outputs (out, m, l), to hold the two trees' bits
+    out["digests"] = {k: hashlib.sha256(b"".join(
+        t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        for t in fn())).hexdigest() for k, fn in attention.items()}
     return out
 
 
-def attention_phase_times(torch, dev):
+def attention_phase_times(torch, dev, calls=None):
     """Device time per call of each CUDA kernel that one arena attention
-    call issues at the main shapes (the split design's phase A,
-    ``split_scores``, and phase B, ``split_values``), from torch.profiler
-    over 20 back-to-back calls; and the host's time to enqueue one call.
+    call issues (the split design's phase A, ``split_scores``, and phase
+    B, ``split_values``), from torch.profiler over 20 back-to-back calls;
+    and the host's time to enqueue one call; for ``calls`` ({label:
+    call}), by default the main shapes' (``attention_main_calls``).
     Returns {"W=1": {"phase_a_ms": .., "phase_b_ms": .., "kernels_per_call":
     .., "host_ms": ..}, ...}."""
     from repro_torch.kernels import ops
 
     names = ("split_scores", "split_values")
     out = {}
-    for w, fn in attention_main_calls(torch, dev, ops).items():
+    if calls is None:
+        calls = attention_main_calls(torch, dev, ops)
+    for w, fn in calls.items():
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
@@ -1532,7 +1774,7 @@ def attention_phase_times(torch, dev):
               f"profiler saw both phases at {w}")
         out[w] = dict(phases, kernels_per_call=launched / 20,
                       host_ms=host_ms)
-        print(f"arena attention {w} at the main shapes: phase A "
+        print(f"arena attention {w}: phase A "
               f"{phases['phase_a_ms']:.4f} ms + phase B "
               f"{phases['phase_b_ms']:.4f} ms of device time per call "
               f"(torch.profiler, {launched / 20:g} CUDA kernels per call), "
@@ -1557,6 +1799,12 @@ def compare_with(torch, baseline: Path):
         check(proc.returncode == 0,
               f"timing {src}: {proc.stderr[-2000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    digests = [r.pop("digests") for r in runs]
+    for k in digests[0]:
+        same = len({d[k] for d in digests}) == 1
+        print(f"arena attention {k} at the main shapes: out, m and l "
+              f"bit-equal to {baseline}'s in all four turns: {same}")
+        check(same, f"arena attention {k} bit-equal to the baseline")
     for w in runs[0]:
         base = [runs[0][w], runs[3][w]]
         this = [runs[1][w], runs[2][w]]
@@ -1603,11 +1851,13 @@ def model_setup(torch, dev, arch=ARCH):
     return cfg, params
 
 
-def serve(torch, dev, cfg, params, **spec):
-    """Serve SCENARIO PD-separated on the paged arena (``spec``: the
-    speculation fields of RuntimeConfig); the launch counts are set to 0
-    just before the run and read just after.  Returns (runtime, wall
-    seconds, launch counts)."""
+def serve(torch, dev, cfg, params, seq=SEQ, slots=SLOTS, scenario=SCENARIO,
+          store_capacity=1 << 30, **spec):
+    """Serve ``scenario`` PD-separated on the paged arena with ``seq``-token
+    prompts and ``slots`` decode slots (``spec``: the speculation fields
+    of RuntimeConfig); the launch counts are set to 0 just before the run
+    and read just after.  Returns (runtime, wall seconds, launch
+    counts)."""
     from repro_torch.core.profiles import Profile
     from repro_torch.core.strategy import StrategyConfig
     from repro_torch.kernels import launches, reset_launches
@@ -1623,12 +1873,12 @@ def serve(torch, dev, cfg, params, **spec):
         static_profile=profile,
         # the pool tier holds every prompt's compressed prefix (~67 MB
         # each at full width), so the three repeated prompts hit it
-        config=RuntimeConfig(seq=SEQ, decode_tokens=DECODE_TOKENS,
+        config=RuntimeConfig(seq=seq, decode_tokens=DECODE_TOKENS,
                              mode="pd", paged=True, page_size=PAGE_SIZE,
                              pd_inject_restored=True,
-                             store_capacity=1 << 30, **spec),
+                             store_capacity=store_capacity, **spec),
         trace=BandwidthTrace.constant(100 * GBPS),
-        scheduler=SchedulerConfig(max_slots=SLOTS, max_prefills_per_step=2,
+        scheduler=SchedulerConfig(max_slots=slots, max_prefills_per_step=2,
                                   max_queue=32),
         device=dev)
     rt.model_cfg, rt.params = cfg, params
@@ -1636,7 +1886,7 @@ def serve(torch, dev, cfg, params, **spec):
         torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    for w, slo_class, seed, out_tokens, steps_after in list(SCENARIO):
+    for w, slo_class, seed, out_tokens, steps_after in list(scenario):
         check(rt.submit(w, slo_class=slo_class, prompt_seed=seed,
                         out_tokens=out_tokens) is not None, "admission")
         for _ in range(steps_after):
@@ -1656,12 +1906,15 @@ def _leaves(tree):
         yield tree
 
 
-def check_runtime(rt, cfg) -> None:
+def check_runtime(rt, cfg, scenario=SCENARIO, hits=(3, 5, 6)) -> None:
+    """Every request of ``scenario`` served with its tokens, in the
+    vocabulary, breakdowns summing to JCT, wire bytes; the pool hits
+    ``hits`` (None: not checked); every page returned."""
     done = sorted(rt.completed, key=lambda r: r.rid)
-    check(len(done) == len(SCENARIO), "every request served")
-    hits = [r.rid for r in done if r.pool_hit]
-    check(hits == [3, 5, 6], f"pool hits {hits}")
-    for r, (_, _, _, out_tokens, _) in zip(done, SCENARIO):
+    check(len(done) == len(scenario), "every request served")
+    got = [r.rid for r in done if r.pool_hit]
+    check(hits is None or got == list(hits), f"pool hits {got}")
+    for r, (_, _, _, out_tokens, _) in zip(done, scenario):
         want = (out_tokens or rt.cfg.decode_tokens) + 1
         check(len(r.tokens) == want, f"rid {r.rid}: {len(r.tokens)} tokens")
         check(all(0 <= int(t) < cfg.vocab_size for t in r.tokens),
@@ -1728,36 +1981,40 @@ def _baseline_library(torch, baseline: Path, name: str):
     check(proc.returncode == 0, f"baseline {name}: {proc.stdout[-2000:]}")
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in build.SIGNATURES[name].items():
+        if not hasattr(lib, fn):   # an entry the baseline does not have
+            continue
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
     return lib
 
 
-def decode_step_times(torch, dev, cfg, params, baseline=None):
-    """One full-width paged decode step of SLOTS slots, as phase 3 runs
-    it (lengths 1024-1055, mixed residency, 32 paged_attention_arena
-    launches): the host's time to enqueue the step, its wall time ending in
-    a sync (medians of 8), and the device's busy time per step from
-    torch.profiler.  With ``baseline``, the same step with the baseline's
-    paged_attention library in place of this tree's, in turns (this,
-    baseline, baseline, this).  Returns {label: [runs]}."""
+def decode_step_times(torch, dev, cfg, params, baseline=None, seq=SEQ,
+                      slots=SLOTS):
+    """One full-width paged decode step of ``slots`` slots, as phase 3 runs
+    it (lengths seq + 0-31, mixed residency, one paged_attention_arena
+    launch a layer): the host's time to enqueue the step, its wall time
+    ending in a sync (medians of 8), and the device's busy time per step
+    from torch.profiler.  With ``baseline``, the same step with the
+    baseline's paged_attention library in place of this tree's, in turns
+    (this, baseline, baseline, this).  Returns {label: [runs]}."""
     from repro_torch.core.quality import _paged_caches, init_paged_pools
     from repro_torch.kernels import build
     from repro_torch.models.transformer import decode_step
 
-    pps = -(-(SEQ + DECODE_TOKENS + 2) // PAGE_SIZE)
-    n_pages = SLOTS * pps + 1
+    pps = -(-(seq + DECODE_TOKENS + 2) // PAGE_SIZE)
+    n_pages = slots * pps + 1
     pool, qc, qs = init_paged_pools(cfg, n_pages, PAGE_SIZE, 1, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     bt = (torch.randperm(n_pages - 1, generator=gen, device=dev)
-          + 1).reshape(SLOTS, pps).to(torch.int32)
-    lens = torch.tensor([SEQ + 16, SEQ + 6, SEQ, pps * PAGE_SIZE - 1,
-                         SEQ + 26, SEQ], dtype=torch.int32, device=dev)
-    qlens = torch.tensor([SEQ, 0, SEQ, 0, 0, SEQ], dtype=torch.int32,
-                         device=dev)
+          + 1).reshape(slots, pps).to(torch.int32)
+    lens = torch.tensor([seq + 16, seq + 6, seq, pps * PAGE_SIZE - 1,
+                         seq + 26, seq][:slots], dtype=torch.int32,
+                        device=dev)
+    qlens = torch.tensor([seq, 0, seq, 0, 0, seq][:slots],
+                         dtype=torch.int32, device=dev)
     paged = _paged_caches(pool, qc, qs, bt, qlens)
-    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    tok = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
 
     def step():
         return decode_step(cfg, params, paged, tok, lens)
@@ -2972,6 +3229,154 @@ def moe_serving_phase(torch, dev):
     return counts
 
 
+# Phase 8c: gemma2-9b on the paged arena.  The runtime serves one prompt
+# length a RuntimeConfig (``seq``, in both packages), so the phase serves
+# twice: phase 3's scenario at 1,024 tokens, inside the 4,096-position
+# window, then three requests at 5,120 tokens, past it (a multiple of the
+# prefill's 1,024-position attention chunk), on three slots: 42 layers x
+# 8 KV heads x 256 channels x (2 B fp + 1 B code + 4 B scale) x K and V
+# is 1.2 MB a position, 18.6 GB for 967 pages of 16 beside 18.5 GB of
+# weights.
+GEMMA_LONG_SEQ, GEMMA_LONG_SLOTS = 5120, 3
+GEMMA_LONG_SCENARIO = [("qalike", "standard", 0, None, 1),
+                       ("codelike", "interactive", 1, None, 2),
+                       ("qalike", "batch", 0, None, 0)]
+GEMMA_VERIFY_LAYERS = 2       # one local and one global layer
+GEMMA_VERIFY_SCENARIO = [("codelike", "interactive", 1, None, 0),
+                         ("mathlike", "batch", 2, None, 0)]
+
+
+def serve_recorded(torch, dev, cfg, params, **kw):
+    """``serve`` with the model's two arena entries wrapped so that the
+    run records the (window, softcap) pairs it launched each with.
+    Returns (runtime, wall seconds, launch counts, {entry: pairs})."""
+    import repro_torch.models.layers as layers
+
+    seen, real = {}, {}
+    for name in ("paged_attention_arena_op",
+                 "paged_verify_attention_arena_op"):
+        fn = real[name] = getattr(layers, name)
+        seen[name] = set()
+
+        def wrapped(*args, window=0, softcap=0.0, _fn=fn, _seen=seen[name],
+                    **kwargs):
+            _seen.add((window, softcap))
+            return _fn(*args, window=window, softcap=softcap, **kwargs)
+
+        setattr(layers, name, wrapped)
+    try:
+        rt, wall, counts = serve(torch, dev, cfg, params, **kw)
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+    return rt, wall, counts, seen
+
+
+def gemma2_serving_phase(torch, dev):
+    """8c: gemma2-9b at full width and depth served PD-separated on the
+    paged arena with phase 3's settings, at 1,024-token and at
+    5,120-token prompts (past the local layers' 4,096-position window,
+    which the kernels then cut); every request completes, breakdowns sum
+    to JCT, page tables drain, the three kernels launch, the attention
+    entry with the cap on every layer and the window on the local ones;
+    the kernel path against the plain path on one decode step of a
+    5,120-token prompt (phase 3's gate; the dense gathered view printed
+    beside it), one decode step's times and top kernels at 5,120
+    positions, cold TTFT stages, peak memory; then a two-layer cut at
+    full width served with the two-model draft (``spec_k=4``), which
+    must launch the verify entry with the cap and the window.  Returns
+    the launch counts of the three runs, summed."""
+    from repro_torch.configs import get_config, register
+    from repro_torch.models.transformer import init_params
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, params = model_setup(torch, dev, GEMMA_ARCH)
+    print(f"phase 8c: {GEMMA_ARCH}, {cfg.num_layers} layers (window "
+          f"{cfg.sliding_window} on every other), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads (KV {cfg.kv_heads}), head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, attention cap {cfg.attn_softcap:g}, final "
+          f"cap {cfg.final_softcap:g}")
+    check((cfg.attn_softcap, cfg.sliding_window) == (GEMMA_CAP, GEMMA_WINDOW),
+          "gemma2-9b's cap and window")
+    total, runs = {}, (
+        ("1,024-token prompts", dict(), (3, 5, 6)),
+        (f"{GEMMA_LONG_SEQ:,}-token prompts",
+         dict(seq=GEMMA_LONG_SEQ, slots=GEMMA_LONG_SLOTS,
+              scenario=GEMMA_LONG_SCENARIO, store_capacity=8 << 30), None))
+    for label, kw, hits in runs:
+        rt, wall, counts, seen = serve_recorded(torch, dev, cfg, params,
+                                                **kw)
+        print(f"phase 8c, {label}:")
+        print_requests(rt, wall)
+        check_runtime(rt, cfg, kw.get("scenario", SCENARIO), hits)
+        for r in sorted(rt.completed, key=lambda r: r.rid):
+            if not r.pool_hit:
+                stages = {k: round(v * 1e3, 2) for k, v in
+                          r.breakdown.items() if k != "decode" and v}
+                print(f"phase 8c cold rid {r.rid}: TTFT "
+                      f"{r.ttft * 1e3:.2f} ms, stages (ms) {stages}")
+        pairs = seen["paged_attention_arena_op"]
+        print(f"phase 8c, {label}: launches {counts}; paged_attention_arena "
+              f"launched with (window, softcap) {sorted(pairs)}")
+        check(pairs == {(GEMMA_WINDOW, GEMMA_CAP), (0, GEMMA_CAP)},
+              "phase 8c: the arena entry takes the cap on every layer and "
+              "the window on the local ones")
+        for k in ("quant_pack_op", "dequant_unpack_op",
+                  "paged_attention_arena_op"):
+            check(counts[k] > 0, f"{k} launched in phase 8c")
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        release_arenas(torch, rt)
+        if hits is None:
+            err, scale, gap, same = reference_check(torch, rt, cfg, params,
+                                                    dev)
+            tol = 2e-2 + 1.6e-2 * scale
+            check(err <= tol and (same or gap <= tol),
+                  "phase 8c: full-width decode at 5,120 positions through "
+                  "the kernel agrees with the plain path")
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    decode_step_times(torch, dev, cfg, params, seq=GEMMA_LONG_SEQ,
+                      slots=GEMMA_LONG_SLOTS)
+    print(f"phase 8c: peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the verify path: a full-width two-layer cut, its own draft
+    short = register(dataclasses.replace(
+        get_config(GEMMA_ARCH), name=f"{GEMMA_ARCH}-{GEMMA_VERIFY_LAYERS}l",
+        num_layers=GEMMA_VERIFY_LAYERS))
+    params = init_params(short, seed=0, dtype=torch.bfloat16, device=dev)
+    spec, wall, counts, seen = serve_recorded(
+        torch, dev, short, params, seq=GEMMA_LONG_SEQ, slots=2,
+        scenario=GEMMA_VERIFY_SCENARIO, store_capacity=8 << 30,
+        spec_k=SPEC_K, spec_kind="model")
+    pairs = seen["paged_verify_attention_arena_op"]
+    steps = sum(r.verify_steps for r in spec.completed)
+    print(f"phase 8c verify: {short.name} at full width, two-model drafts "
+          f"(spec_k={SPEC_K}), {len(spec.completed)} requests of "
+          f"{GEMMA_LONG_SEQ:,} tokens in {wall:.2f} s wall, {steps} verify "
+          f"steps; launches {counts}; paged_verify_attention_arena launched "
+          f"with (window, softcap) {sorted(pairs)}")
+    check_runtime(spec, short, GEMMA_VERIFY_SCENARIO, ())
+    check(steps > 0 and counts["paged_verify_attention_arena_op"] > 0,
+          "phase 8c: verify steps through the verify kernel")
+    check(pairs == {(GEMMA_WINDOW, GEMMA_CAP), (0, GEMMA_CAP)},
+          "phase 8c: the verify entry takes the cap and the window")
+    total = {k: total.get(k, 0) + n for k, n in counts.items()}
+    release_arenas(torch, spec)
+    del spec, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8c: {time.perf_counter() - t0:.2f} s wall")
+    return total
+
+
 def _bf16_ulps_apart(a: float, b: float) -> float:
     """|a - b| in bf16 ulps of the larger magnitude."""
     m = max(abs(a), abs(b))
@@ -3215,6 +3620,9 @@ def main(argv) -> int:
     repaired_shapes_phase(torch, dev)
     split_edges_phase(torch, dev)
     family_shapes_phase(torch, dev)
+    gemma = window_cap_phase(torch, dev)
+    results["paged_attention"]["gemma2"] = gemma["W=1"]
+    results["paged_verify_attention"]["gemma2"] = gemma[f"W={SPEC_K + 1}"]
     phase_times = attention_phase_times(torch, dev)
     results["paged_attention"]["phase_times"] = phase_times["W=1"]
     results["paged_verify_attention"]["phase_times"] = {
@@ -3336,6 +3744,9 @@ def main(argv) -> int:
     counts = moe_serving_phase(torch, dev)
     phase8 = {k: counts[op] for k, op in op_of.items()}
     families_phase(torch, dev)
+    counts = gemma2_serving_phase(torch, dev)
+    phase8c = {k: counts[op] for k, op in op_of.items()}
+    print(f"launches on the phase 8c path: {phase8c}")
     print(f"phase 8: {time.perf_counter() - t8:.2f} s wall")
 
     meta = {
@@ -3360,7 +3771,8 @@ def main(argv) -> int:
         entry = {"name": k, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[k],
                  "phase6_launches": phase6[k], "phase7_launches": phase7[k],
-                 "phase8_launches": phase8[k]}
+                 "phase8_launches": phase8[k],
+                 "phase8c_launches": phase8c[k]}
         entry.update(results[k])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

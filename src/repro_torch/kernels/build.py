@@ -41,14 +41,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "paged_attention_arena": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _F, _P)},
+                                  _F, _P),
+        "paged_attention_arena_window_cap": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+            _I, _I, _I, _I, _F, _I, _F, _P)},
     "paged_verify_attention": {
         "paged_verify_attention": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                    _P),
         "paged_verify_attention_arena": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _I, _I, _F, _P)},
+                                         _I, _I, _I, _F, _P),
+        "paged_verify_attention_arena_window_cap": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+            _I, _I, _I, _I, _I, _F, _I, _F, _P)},
     "decode_attention": {
         "decode_attention": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I,
                              _I, _I, _I, _I, _I, _I, _F, _P)},

@@ -20,6 +20,13 @@
 //                          denominator l, so the caller merges the new
 //                          token in closed form (the JAX package's
 //                          multihead_attention(return_stats=True)).
+//   paged_attention_arena_window_cap
+//                          the same with gemma-2's local-layer sliding
+//                          window and attention softcap (either may be
+//                          0), kept out of the entry above by a template
+//                          flag (paged_split.cuh).  A row that sees no
+//                          position gives m = -inf, l = 0, out = 0 in
+//                          both arena entries.
 //
 // Bound on this card: bytes.  Every visible K and V element is read once
 // (2 bytes fp, or 1 byte code + 4 bytes scale) for 2 flops per query row,
@@ -75,4 +82,20 @@ extern "C" int paged_attention_arena(
   return split_launch<true, false, true, kLWidth, ArenaPages, __nv_bfloat16>(
       q, pages, block_tables, kv_lens, quant_lens, ws, out, m, l, b, gq, gq,
       d, pps, ps, sm_scale, stream);
+}
+
+extern "C" int paged_attention_arena_window_cap(
+    const void* q, const void* k_pool, const void* v_pool,
+    const int8_t* k_codes, const float* k_scale, const int8_t* v_codes,
+    const float* v_scale, const int32_t* block_tables, const int32_t* kv_lens,
+    const int32_t* quant_lens, float* ws, void* out, float* m, float* l,
+    int b, int hkv, int gq, int d, int pps, int ps, float sm_scale,
+    int window, float softcap, void* stream) {
+  ArenaPages pages{static_cast<const __nv_bfloat16*>(k_pool),
+                   static_cast<const __nv_bfloat16*>(v_pool),
+                   k_codes, k_scale, v_codes, v_scale, hkv, ps, d};
+  return split_launch<true, false, true, kLWidth, ArenaPages, __nv_bfloat16,
+                      true>(
+      q, pages, block_tables, kv_lens, quant_lens, ws, out, m, l, b, gq, gq,
+      d, pps, ps, sm_scale, stream, 1, window, softcap);
 }

@@ -44,6 +44,21 @@
 // No float atomics: every sum has one fixed order, so two launches on the
 // same input give the same bits.
 //
+// Gemma-2's local layers and its attention softcap (the arena entries'
+// _window_cap variants, template flag kWinCap; without it the kernels are
+// the same code as before the flag): phase A caps each scaled f32 score as
+// tanhf(s / cap) * cap (IEEE divide: the build has no fast math) before
+// it reaches the workspace and the chunk max, and masks each row below its
+// own window bound (query token j of a slot at kv_len sees positions p
+// with kv_len + j - window < p < kv_len).  A chunk wholly below every
+// tile row's bound writes -inf and exits, as one wholly beyond the length
+// does, and phase B starts its walk at the stage that holds the tile's
+// lowest seen position: the positions it skips have p = 0 exactly, so no
+// sum changes a bit.  That skip is the window's only saving: a local
+// layer at 6,000 positions reads its 4,096-position window, not the
+// prefix.  A row that sees no position (kv_len 0, or a window that ends
+// before the prefix) leaves m = -inf, l = 0 and out = 0.
+//
 // What limits it (H100, main shapes, see PERF.md): neither phase is near
 // the byte bound.  Phase A waits on its K loads and then computes with no
 // other work to overlap; phase B spends most of a stage turning V and the
@@ -78,12 +93,40 @@ struct Split {
   float sm_scale;
   float* ws;     // (B * Hkv, rows, s_pad) scores
   float* cmax;   // (B * Hkv, rows, n_chunks) chunk maxima
+  int w;         // kWinCap: query tokens a slot, row i is token i % w
+  int window;    // kWinCap: sliding window (0: none)
+  float cap;     // kWinCap: attention softcap (0: none)
 };
 
 // Positions row i (of its slot and head) sees, never past the block table.
 template <bool kStair>
 __device__ __forceinline__ int row_len(int base, int i, const Split& sp) {
   return min(kStair ? base + i / sp.gq : base, sp.s_max);
+}
+
+// The first position row i sees (kWinCap): its token j = i % w sits at
+// base + j and sees positions > base + j - window.
+template <bool kWinCap>
+__device__ __forceinline__ int row_lo(int base, int i, const Split& sp) {
+  return kWinCap && sp.window > 0
+             ? max(0, base + i % sp.w - sp.window + 1) : 0;
+}
+
+// The lowest first-seen position of the tile's nt rows from i0.
+template <bool kWinCap>
+__device__ __forceinline__ int tile_lo(int base, int i0, int nt,
+                                       const Split& sp) {
+  if (!kWinCap || sp.window <= 0) return 0;
+  int lo = row_lo<true>(base, i0, sp);
+  for (int i = i0 + 1; i < i0 + min(nt, sp.w); ++i)
+    lo = min(lo, row_lo<true>(base, i, sp));
+  return lo;
+}
+
+// A scaled score, capped (kWinCap, cap > 0) as tanhf(s / cap) * cap.
+template <bool kWinCap>
+__device__ __forceinline__ float capped(float s, const Split& sp) {
+  return kWinCap && sp.cap > 0.f ? tanhf(s / sp.cap) * sp.cap : s;
 }
 
 // The sum an xor butterfly (16, 8, 4, 2, 1) over 32 lanes leaves in lane 0.
@@ -95,8 +138,8 @@ __device__ __forceinline__ float butterfly32(float (&v)[32]) {
   return v[0];
 }
 
-template <bool kArena, bool kStair, bool kWarpDot, typename Pages,
-          typename QT>
+template <bool kArena, bool kStair, bool kWarpDot, bool kWinCap,
+          typename Pages, typename QT>
 __global__ void __launch_bounds__(kThreads)
     split_scores(const QT* __restrict__ q, Pages pages,
                  const int32_t* __restrict__ block_tables,
@@ -112,7 +155,9 @@ __global__ void __launch_bounds__(kThreads)
   const int t0 = c * sp.chunk;
   const int n = min(sp.chunk, row_len<kStair>(base, i0 + nt - 1, sp) - t0);
   float* cm = sp.cmax + row0 * sp.n_chunks + c;
-  if (n <= 0) {  // the chunk lies wholly beyond every tile row's length
+  // the chunk lies wholly beyond every tile row's length, or wholly below
+  // every tile row's window
+  if (n <= 0 || (kWinCap && t0 + n <= tile_lo<kWinCap>(base, i0, nt, sp))) {
     for (int i = tid; i < nt; i += kThreads)
       cm[(long long)i * sp.n_chunks] = -INFINITY;
     return;
@@ -180,7 +225,8 @@ __global__ void __launch_bounds__(kThreads)
         v += __shfl_xor_sync(0xffffffffu, v, 2);
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         if (live && k8 == 0)
-          s_s[i * sp.chunk + t] = (kArena ? bf16_round(v) : v) * sp.sm_scale;
+          s_s[i * sp.chunk + t] = capped<kWinCap>(
+              (kArena ? bf16_round(v) : v) * sp.sm_scale, sp);
       }
     }
   } else {
@@ -216,8 +262,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           if (t + x < n && g0 + j < nt)
-            s_s[(g0 + j) * sp.chunk + t + x] =
-                (kArena ? bf16_round(acc[x][j]) : acc[x][j]) * sp.sm_scale;
+            s_s[(g0 + j) * sp.chunk + t + x] = capped<kWinCap>(
+                (kArena ? bf16_round(acc[x][j]) : acc[x][j]) * sp.sm_scale,
+                sp);
     }
   }
   __syncthreads();
@@ -225,12 +272,13 @@ __global__ void __launch_bounds__(kThreads)
   // the scores to the workspace; each row's max over the positions it sees
   for (int i = warp; i < nt; i += kWarps) {
     const int vis = row_len<kStair>(base, i0 + i, sp) - t0;
+    const int lov = row_lo<kWinCap>(base, i0 + i, sp) - t0;
     float* wr = sp.ws + (row0 + i) * sp.s_pad + t0;
     float mx = -INFINITY;
     for (int t = lane; t < n; t += 32) {
       const float s = s_s[i * sp.chunk + t];
       wr[t] = s;
-      if (t < vis) mx = fmaxf(mx, s);
+      if (t < vis && (!kWinCap || t >= lov)) mx = fmaxf(mx, s);
     }
     for (int off = 16; off > 0; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -241,8 +289,8 @@ __global__ void __launch_bounds__(kThreads)
 // Phase B; blockDim.x is one thread per (row, channel) of the block,
 // rounded up to whole warps, and at least kTileB.  kStages stages of kTileB
 // positions, all but one in flight.
-template <bool kArena, bool kStair, int kLWidth, int kStages, typename Pages,
-          typename QT>
+template <bool kArena, bool kStair, bool kWinCap, int kLWidth, int kStages,
+          typename Pages, typename QT>
 __global__ void __launch_bounds__(kMaxThreadsB, 2)
     split_values(Pages pages, const int32_t* __restrict__ block_tables,
                  const int32_t* __restrict__ kv_lens,
@@ -270,6 +318,7 @@ __global__ void __launch_bounds__(kMaxThreadsB, 2)
   float* a_s = v_s + kTileB * kSlice;                 // (nt, kLWidth)
   float* m_s = a_s + nt * kLWidth;                    // (nt) max, then l
   int* len_s = reinterpret_cast<int*>(m_s + nt);      // (nt)
+  int* lo_s = len_s + nt;                             // (nt) kWinCap
 
   // the exact row max: the max of the chunk maxima
   for (int i = tid; i < nt; i += nthr) {
@@ -283,6 +332,7 @@ __global__ void __launch_bounds__(kMaxThreadsB, 2)
     for (; k < sp.n_chunks; ++k) mx = fmaxf(mx, cm[k]);
     m_s[i] = mx;
     len_s[i] = row_len<kStair>(base, i0 + i, sp);
+    if (kWinCap) lo_s[i] = row_lo<kWinCap>(base, i0 + i, sp);
   }
   for (int i = tid; i < nt * kLWidth; i += nthr) a_s[i] = 0.f;
 
@@ -292,6 +342,9 @@ __global__ void __launch_bounds__(kMaxThreadsB, 2)
   // a block-table entry loaded one stage ahead.
   const int32_t* bt = block_tables + (long long)b * sp.pps;
   const int n_tiles = (len_hi + kTileB - 1) / kTileB;
+  // kWinCap: the walk starts at the stage of the tile's lowest seen
+  // position; the stages before it hold only p = 0
+  const int k0 = kWinCap ? tile_lo<kWinCap>(base, i0, nt, sp) / kTileB : 0;
   auto page_of = [&](int k) {
     const int t = k * kTileB + tid;
     return tid < kTileB && t < len_hi ? bt[t / sp.ps] : 0;
@@ -316,14 +369,14 @@ __global__ void __launch_bounds__(kMaxThreadsB, 2)
     cp_async_commit();
   };
 #pragma unroll
-  for (int k = 0; k < kStages - 1; ++k) issue(k, page_of(k));
-  int page_next = page_of(kStages - 1);
+  for (int k = 0; k < kStages - 1; ++k) issue(k0 + k, page_of(k0 + k));
+  int page_next = page_of(k0 + kStages - 1);
 
   // one chain per (row, channel): p * v over the positions in order
   const int ci = tid / kSlice, cc = tid % kSlice;
   const bool chain = ci < nt;
   float acc = 0.f;
-  for (int k = 0; k < n_tiles; ++k) {
+  for (int k = k0; k < n_tiles; ++k) {
     const int t0 = k * kTileB, n = min(kTileB, len_hi - t0);
     const uint8_t* rs = raw_s + (k % kStages) * kTileB * Pages::kStageBytes;
     float* ss = sc_s + (k % kStages) * nt * kPst;
@@ -364,12 +417,14 @@ __global__ void __launch_bounds__(kMaxThreadsB, 2)
           if (pr < nt * kLWidth) {
             const int i = pr / kLWidth, r = pr % kLWidth;
             const int vis = len_s[i] - t0;
+            const int lov = kWinCap ? lo_s[i] - t0 : 0;
             const float mx = m_s[i];
 #pragma unroll
             for (int x = 0; x < kPer; ++x) {
               const int tt = r + x * kLWidth;
               if (tt < n) {
-                const float p = tt < vis ? expf(sv[j][x] - mx) : 0.f;
+                const float p = tt < vis && (!kWinCap || tt >= lov)
+                                    ? expf(sv[j][x] - mx) : 0.f;
                 av[j] += p;
                 ss[i * kPst + tt] = kArena ? bf16_round(p) : p;
               }
@@ -452,18 +507,19 @@ int pick_chunk(long long bh, int tiles, int rows, int s_max, int d) {
   return c;
 }
 
-template <bool kArena, bool kStair, int kLWidth, int kStages, typename Pages,
-          typename QT>
+template <bool kArena, bool kStair, bool kWinCap, int kLWidth, int kStages,
+          typename Pages, typename QT>
 int launch_values(Pages pages, const int32_t* block_tables,
                   const int32_t* kv_lens, const int32_t* quant_lens, QT* out,
                   float* m, float* l, const Split& sp, long long bh,
                   int tiles, cudaStream_t st) {
-  auto kb = split_values<kArena, kStair, kLWidth, kStages, Pages, QT>;
+  auto kb = split_values<kArena, kStair, kWinCap, kLWidth, kStages, Pages,
+                         QT>;
   const size_t sb =
       (size_t)kStages * kTileB * Pages::kStageBytes +
       sizeof(float) * ((size_t)kStages * sp.tile * (kTileB + 4) +
                        (size_t)kTileB * kSlice +
-                       (size_t)sp.tile * (kLWidth + 2));
+                       (size_t)sp.tile * (kLWidth + (kWinCap ? 3 : 2)));
   int e = allow_smem(kb, sb);
   if (e) return e;
   int threads = (sp.tile * kSlice + 31) / 32 * 32;
@@ -474,16 +530,18 @@ int launch_values(Pages pages, const int32_t* block_tables,
 }
 
 // Both phases on `stream`.  ws: the wrapper's f32 workspace of
-// B * Hkv * rows * (s_pad + ceil(s_max / kMinChunk)) floats.
+// B * Hkv * rows * (s_pad + ceil(s_max / kMinChunk)) floats.  kWinCap:
+// w query tokens a slot (row i is token i % w), the sliding window and
+// the softcap (0: none).
 template <bool kArena, bool kStair, bool kWarpDot, int kLWidth,
-          typename Pages, typename QT>
+          typename Pages, typename QT, bool kWinCap = false>
 int split_launch(const void* q, Pages pages, const int32_t* block_tables,
                  const int32_t* kv_lens, const int32_t* quant_lens,
                  float* ws, void* out, float* m, float* l, int b, int rows,
                  int gq, int d, int pps, int ps, float sm_scale,
-                 void* stream) {
+                 void* stream, int w = 1, int window = 0, float cap = 0.f) {
   if (rows < 1 || d < kSlice || d % kSlice || d > kMaxD || pps < 1 ||
-      ps < 1)
+      ps < 1 || (kWinCap && (w < 1 || rows % w || window < 0 || cap < 0.f)))
     return (int)cudaErrorInvalidValue;
   Split sp;
   sp.rows = rows;
@@ -502,9 +560,12 @@ int split_launch(const void* q, Pages pages, const int32_t* block_tables,
   sp.n_chunks = (sp.s_max + sp.chunk - 1) / sp.chunk;
   sp.ws = ws;
   sp.cmax = ws + bh * rows * sp.s_pad;
+  sp.w = w;
+  sp.window = window;
+  sp.cap = cap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  auto ka = split_scores<kArena, kStair, kWarpDot, Pages, QT>;
+  auto ka = split_scores<kArena, kStair, kWarpDot, kWinCap, Pages, QT>;
   const size_t sa =
       sizeof(float) * ((size_t)sp.tile * d + (size_t)sp.chunk * (d + 8) +
                        (size_t)sp.tile * sp.chunk) +
@@ -521,10 +582,10 @@ int split_launch(const void* q, Pages pages, const int32_t* block_tables,
   // scores' shared memory); a thread per (row, channel), and at least one
   // per position of a stage
   if (sp.tile <= 8)
-    return launch_values<kArena, kStair, kLWidth, 4>(
+    return launch_values<kArena, kStair, kWinCap, kLWidth, 4>(
         pages, block_tables, kv_lens, quant_lens, static_cast<QT*>(out), m,
         l, sp, bh, tiles, st);
-  return launch_values<kArena, kStair, kLWidth, 3>(
+  return launch_values<kArena, kStair, kWinCap, kLWidth, 3>(
       pages, block_tables, kv_lens, quant_lens, static_cast<QT*>(out), m, l,
       sp, bh, tiles, st);
 }

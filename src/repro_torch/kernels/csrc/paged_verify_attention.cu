@@ -27,6 +27,16 @@
 //                                 round to bf16, scores are bf16-rounded
 //                                 dots scaled in f32, the row max is exact,
 //                                 p rounds to bf16 for the p * V sum.
+//   paged_verify_attention_arena_window_cap
+//                                 the same with gemma-2's sliding window
+//                                 (token j, at kv_lens[b] + j, sees
+//                                 positions > kv_lens[b] + j - window: a
+//                                 lower bound per row) and attention
+//                                 softcap, either of them 0 for none,
+//                                 kept out of the entry above by a
+//                                 template flag (paged_split.cuh).  A row
+//                                 that sees no position gives m = -inf,
+//                                 l = 0, out = 0 in both arena entries.
 //
 // Bound on this card: bytes.  Every visible K and V element is read once
 // (2 bytes fp, or 1 byte code + 4 bytes scale) for 2 flops per query row;
@@ -84,4 +94,20 @@ extern "C" int paged_verify_attention_arena(
                       __nv_bfloat16>(
       q, pages, block_tables, kv_lens, quant_lens, ws, out, m, l, b, gq * w,
       gq, d, pps, ps, sm_scale, stream);
+}
+
+extern "C" int paged_verify_attention_arena_window_cap(
+    const void* q, const void* k_pool, const void* v_pool,
+    const int8_t* k_codes, const float* k_scale, const int8_t* v_codes,
+    const float* v_scale, const int32_t* block_tables, const int32_t* kv_lens,
+    const int32_t* quant_lens, float* ws, void* out, float* m, float* l,
+    int b, int hkv, int gq, int w, int d, int pps, int ps, float sm_scale,
+    int window, float softcap, void* stream) {
+  ArenaPages pages{static_cast<const __nv_bfloat16*>(k_pool),
+                   static_cast<const __nv_bfloat16*>(v_pool),
+                   k_codes, k_scale, v_codes, v_scale, hkv, ps, d};
+  return split_launch<true, false, false, kLWidth, ArenaPages,
+                      __nv_bfloat16, true>(
+      q, pages, block_tables, kv_lens, quant_lens, ws, out, m, l, b, gq * w,
+      gq, d, pps, ps, sm_scale, stream, w, window, softcap);
 }

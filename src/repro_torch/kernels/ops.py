@@ -84,6 +84,16 @@ _SPLIT_MIN_CHUNK = 16      # paged_split.cuh's kMinChunk
 _DECODE_SPLIT = 64         # decode_attention.cu's kSplit
 
 
+def _arena_entry(fn: str, window: int, softcap: float):
+    """(C function, its last arguments before the stream) of an arena
+    entry.  A window or a softcap takes the ``_window_cap`` entry, whose
+    kernels apply them under a template flag; without either, the call
+    runs the same kernels as before the two existed."""
+    if window or softcap:
+        return fn + "_window_cap", (int(window), float(softcap))
+    return fn, ()
+
+
 def _check_paged_shape(name: str, rows: int, d: int, pps: int) -> None:
     """Raise where the paged attention kernels cannot take the shape."""
     if rows < 1 or d < 16 or d % 16 or d > 512 or pps < 1:
@@ -279,6 +289,7 @@ def paged_attention_arena_op(
     k_codes: torch.Tensor, k_scale: torch.Tensor, v_codes: torch.Tensor,
     v_scale: torch.Tensor, block_tables: torch.Tensor,
     kv_lens: torch.Tensor, quant_lens: torch.Tensor,
+    window: int = 0, softcap: float = 0.0,
     interpret: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Paged decode attention over one layer of the serving arena:
@@ -286,12 +297,19 @@ def paged_attention_arena_op(
     (P, PS, Hkv, D) int8 codes and f32 per-channel scales; block_tables
     (B, PPS) int32; kv_lens (B,) int32 (positions < kv_lens are seen);
     quant_lens (B,) int32 (positions < quant_lens read the quant pool).
-    Returns (unnormalized bf16 out (B, Hkv, Gq, D), f32 m, f32 l
-    (B, Hkv, Gq)) for the caller's closed-form merge of the new token."""
+    ``window`` > 0 (a local layer's sliding window) also hides positions
+    <= kv_lens - window; ``softcap`` > 0 caps each scaled score as
+    tanh(s / softcap) * softcap before the mask.  Returns (unnormalized
+    bf16 out (B, Hkv, Gq, D), f32 m, f32 l (B, Hkv, Gq)) for the caller's
+    closed-form merge of the new token; a row that sees no position
+    (kv_len 0, or window 1) gives m = -inf, l = 0, out = 0."""
+    if window < 0 or softcap < 0:
+        raise ValueError(f"paged_attention_arena: window={window} "
+                         f"softcap={softcap}")
     if not _use_kernel(q, interpret):
         return ref.paged_attention_arena_ref(
             q, k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
-            block_tables, kv_lens, quant_lens)
+            block_tables, kv_lens, quant_lens, window, softcap)
     b, hkv, gq, d = q.shape
     p, ps = k_pool.shape[:2]
     pps = block_tables.shape[1]
@@ -316,13 +334,14 @@ def paged_attention_arena_op(
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, gq), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gq), dtype=torch.float32, device=dev)
-    _launch("paged_attention", "paged_attention_arena", dev, q.data_ptr(),
+    fn, extra = _arena_entry("paged_attention_arena", window, softcap)
+    _launch("paged_attention", fn, dev, q.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), k_codes.data_ptr(),
             k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(),
             quant_lens.data_ptr(), ws.data_ptr(), out.data_ptr(),
             m.data_ptr(), l.data_ptr(), b, hkv, gq, d, pps, ps,
-            1.0 / math.sqrt(d))
+            1.0 / math.sqrt(d), *extra)
     paged_attention_arena_op.launches += 1
     return out, m, l
 
@@ -380,19 +399,26 @@ def paged_verify_attention_arena_op(
     k_codes: torch.Tensor, k_scale: torch.Tensor, v_codes: torch.Tensor,
     v_scale: torch.Tensor, block_tables: torch.Tensor,
     kv_lens: torch.Tensor, quant_lens: torch.Tensor,
+    window: int = 0, softcap: float = 0.0,
     interpret: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The speculative verify step's read of one layer of the serving
     arena: q (B, Hkv, Gq, W, D) bf16 (W consecutive tokens per slot);
     pools as :func:`paged_attention_arena_op`'s; kv_lens (B,) int32 (every
     row sees positions < kv_lens: the committed prefix); quant_lens (B,)
-    int32.  Returns (unnormalized bf16 out (B, Hkv, Gq, W, D), f32 m, f32
-    l (B, Hkv, Gq, W)) for the caller's closed-form merge of the W new
-    tokens."""
+    int32.  ``window`` > 0 hides from token j (at position kv_lens + j)
+    the positions <= kv_lens + j - window, so each row has its own lower
+    bound; ``softcap`` as :func:`paged_attention_arena_op`'s.  Returns
+    (unnormalized bf16 out (B, Hkv, Gq, W, D), f32 m, f32 l (B, Hkv, Gq,
+    W)) for the caller's closed-form merge of the W new tokens; a row
+    that sees no position gives m = -inf, l = 0, out = 0."""
+    if window < 0 or softcap < 0:
+        raise ValueError(f"paged_verify_attention_arena: window={window} "
+                         f"softcap={softcap}")
     if not _use_kernel(q, interpret):
         return ref.paged_verify_attention_arena_ref(
             q, k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
-            block_tables, kv_lens, quant_lens)
+            block_tables, kv_lens, quant_lens, window, softcap)
     b, hkv, gq, w, d = q.shape
     p, ps = k_pool.shape[:2]
     pps = block_tables.shape[1]
@@ -417,13 +443,15 @@ def paged_verify_attention_arena_op(
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, gq, w), dtype=torch.float32, device=dev)
-    _launch("paged_verify_attention", "paged_verify_attention_arena", dev,
+    fn, extra = _arena_entry("paged_verify_attention_arena", window,
+                             softcap)
+    _launch("paged_verify_attention", fn, dev,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
             v_scale.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
             quant_lens.data_ptr(), ws.data_ptr(),
             out.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, gq, w, d,
-            pps, ps, 1.0 / math.sqrt(d))
+            pps, ps, 1.0 / math.sqrt(d), *extra)
     paged_verify_attention_arena_op.launches += 1
     return out, m, l
 

@@ -238,6 +238,42 @@ def _arena_kv(k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
             torch.where(use_q, vq, view(v_pool)))
 
 
+def _capped(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+    """Gemma-2's attention softcap, tanh(s / cap) * cap, with the IEEE
+    divide: the divisor is a tensor, because PyTorch's CUDA divide by a
+    Python scalar multiplies by its reciprocal."""
+    if not softcap:
+        return scores
+    cap = torch.full((), softcap, dtype=scores.dtype, device=scores.device)
+    return torch.tanh(scores / cap) * softcap
+
+
+def _arena_seen(kv_lens: torch.Tensor, s: int, w: int, window: int,
+                device) -> torch.Tensor:
+    """(B, 1 or W, S): the positions query token j of slot b sees over the
+    arena, p < kv_lens[b] and, under a sliding window, p > kv_lens[b] + j
+    - window (the JAX package's attention_scores_mask at the token's
+    position kv_lens[b] + j)."""
+    pos = torch.arange(s, device=device)
+    lens = kv_lens.to(device).long()[:, None, None]
+    seen = pos < lens
+    if window > 0:
+        j = torch.arange(w, device=device)[None, :, None]
+        seen = seen & (pos > lens + j - window)
+    return seen
+
+
+def _empty_rows(out, m, l, seen):
+    """The arena entries' convention for a row that sees no position (a
+    never-used slot at kv_len 0, or a window that ends before the
+    prefix): m = -inf, l = 0, out = 0, as the kernels leave it.  Every
+    other row keeps its bits; the caller's merge gives exp(m - m_new) = 0
+    for such a row either way."""
+    empty = ~seen.any(-1)
+    return (out.masked_fill(empty[..., None], 0),
+            m.masked_fill(empty, -math.inf), l.masked_fill(empty, 0.0))
+
+
 def paged_attention_arena_ref(
     q: torch.Tensor,          # (B, Hkv, Gq, D) bf16
     k_pool: torch.Tensor,     # (P, PS, Hkv, D) bf16 fp pool
@@ -250,25 +286,31 @@ def paged_attention_arena_ref(
     kv_lens: torch.Tensor,       # (B,) int32: positions < kv_lens are seen
     quant_lens: torch.Tensor,    # (B,) int32: positions < quant_lens read
                                  # the quant pool, the rest the fp pool
+    window: int = 0,             # > 0: only positions > kv_lens - window
+    softcap: float = 0.0,        # > 0: scores tanh(s / cap) * cap
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ops.paged_attention_arena_op: the serving decode
     step's read of the paged arena.  Quant-resident positions dequantize
     in f32 and round to bf16; scores are bf16 dots (f32 sums, in the
-    kernel's order, rounded to bf16) scaled in f32, masked with
-    finfo(f32).min; p rounds to bf16 for the sum over positions (in the
-    kernel's order).  Returns the UNNORMALIZED bf16 ``out`` (B, Hkv, Gq,
-    D) with f32 row max ``m`` and denominator ``l`` (B, Hkv, Gq), exactly
-    as the JAX package's ``multihead_attention(return_stats=True)`` over
-    ``_blend_quant``'s view."""
+    kernel's order, rounded to bf16) scaled in f32, then capped
+    (``softcap``), then masked with finfo(f32).min (positions >= kv_lens
+    and, with ``window``, <= kv_lens - window); p rounds to bf16 for the
+    sum over positions (in the kernel's order).  Returns the UNNORMALIZED
+    bf16 ``out`` (B, Hkv, Gq, D) with f32 row max ``m`` and denominator
+    ``l`` (B, Hkv, Gq), exactly as the JAX package's
+    ``multihead_attention(return_stats=True)`` over ``_blend_quant``'s
+    view, except that a row that sees no position gives m = -inf, l = 0
+    and out = 0 (the JAX mask averages the whole view there; the step's
+    merge discards either)."""
     b, hkv, gq, d = q.shape
     k, v = _arena_kv(k_pool, v_pool, k_codes, k_scale, v_codes, v_scale,
                      block_tables, quant_lens)
     s = k.shape[1]
     scores = _warp_dot(q.float()[:, :, :, None, :],
                        k.float().permute(0, 2, 1, 3)[:, :, None])
-    scores = scores.to(torch.bfloat16).float() * (1.0 / math.sqrt(d))
-    seen = (torch.arange(s, device=q.device)[None, :]
-            < kv_lens.to(q.device).long()[:, None])[:, None, None, :]
+    scores = _capped(scores.to(torch.bfloat16).float() * (1.0 / math.sqrt(d)),
+                     softcap)
+    seen = _arena_seen(kv_lens, s, 1, window, q.device)[:, None]
     scores = torch.where(seen, scores, torch.finfo(torch.float32).min)
     m = scores.amax(dim=-1)
     p = torch.exp(scores - m[..., None])
@@ -280,7 +322,7 @@ def paged_attention_arena_ref(
     out = torch.zeros((b, hkv, gq, d), device=q.device)
     for t in range(s):
         out = out + pb[..., t, None] * vt[:, :, None, t]
-    return out.to(torch.bfloat16), m, l
+    return _empty_rows(out.to(torch.bfloat16), m, l, seen)
 
 
 # ---------------------------------------------------------------------------
@@ -345,13 +387,18 @@ def paged_verify_attention_arena_ref(
                                  # < kv_lens (the committed prefix)
     quant_lens: torch.Tensor,    # (B,) int32: positions < quant_lens read
                                  # the quant pool, the rest the fp pool
+    window: int = 0,             # > 0: token j sees p > kv_lens + j - window
+    softcap: float = 0.0,        # > 0: scores tanh(s / cap) * cap
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ops.paged_verify_attention_arena_op: the
     speculative verify step's read of the committed prefix in the paged
     arena, for W * Gq query rows per KV head.  The rounding points are
-    paged_attention_arena_ref's; the sums run in the verify kernel's
-    order: each score in order over D, each row's denominator as one
-    warp takes it, each output in order over the positions.  Returns the
+    paged_attention_arena_ref's, the cap and the mask too, with each
+    token's own window bound: token j sits at position kv_lens + j; a
+    row whose window ends before the prefix sees nothing and gives m =
+    -inf, l = 0, out = 0.  The sums run in the verify kernel's order:
+    each score in order over D, each row's denominator as one warp takes
+    it, each output in order over the positions.  Returns the
     UNNORMALIZED bf16 ``out`` (B, Hkv, Gq, W, D) with f32 ``m`` and ``l``
     (B, Hkv, Gq, W), which the caller merges with the W new tokens'
     intra-block attention in closed form."""
@@ -361,9 +408,10 @@ def paged_verify_attention_arena_ref(
     s = k.shape[1]
     qr = q.float().reshape(b, hkv, gq * w, 1, d)
     scores = _seq_dot(qr, k.float().permute(0, 2, 1, 3)[:, :, None])
-    scores = scores.to(torch.bfloat16).float() * (1.0 / math.sqrt(d))
-    seen = (torch.arange(s, device=q.device)[None, :]
-            < kv_lens.to(q.device).long()[:, None])[:, None, None, :]
+    scores = _capped(scores.to(torch.bfloat16).float() * (1.0 / math.sqrt(d)),
+                     softcap)
+    seen = _arena_seen(kv_lens, s, w, window, q.device)     # (B, 1|W, S)
+    seen = seen[:, None, None].expand(b, 1, gq, w, s).reshape(b, 1, gq * w, s)
     scores = torch.where(seen, scores, torch.finfo(torch.float32).min)
     m = scores.amax(dim=-1)
     p = torch.exp(scores - m[..., None])
@@ -373,5 +421,6 @@ def paged_verify_attention_arena_ref(
     out = torch.zeros((b, hkv, gq * w, d), device=q.device)
     for t in range(s):
         out = out + pb[..., t, None] * vt[:, :, None, t]
-    return (out.to(torch.bfloat16).reshape(b, hkv, gq, w, d),
-            m.reshape(b, hkv, gq, w), l.reshape(b, hkv, gq, w))
+    out, m, l = _empty_rows(out.to(torch.bfloat16), m, l, seen)
+    return (out.reshape(b, hkv, gq, w, d), m.reshape(b, hkv, gq, w),
+            l.reshape(b, hkv, gq, w))

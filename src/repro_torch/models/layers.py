@@ -114,8 +114,12 @@ def _mask_value() -> float:
 
 
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """tanh(x / cap) * cap with the IEEE divide on every device (a tensor
+    divisor: PyTorch's CUDA divide by a Python scalar multiplies by its
+    reciprocal), as the paged arena kernels cap their scores."""
     if cap and cap > 0:
-        return torch.tanh(x / cap) * cap
+        return torch.tanh(x / torch.full((), cap, dtype=x.dtype,
+                                         device=x.device)) * cap
     return x
 
 
@@ -313,12 +317,8 @@ def apply_attention(
         else:
             q_pos = cache_pos + offs                      # (S,)
         if isinstance(cache, PagedKV):
-            # The arena kernels apply neither a window nor a softcap, so
-            # such a model would read wrong scores: refuse it.
-            if window:
-                raise NotImplementedError("paged arena: no sliding window")
-            if cap:
-                raise NotImplementedError("paged arena: no attention softcap")
+            # the kernels cap the scores and apply a local layer's window
+            # (each verify row's own bound) on the committed prefix
             slot_pos = cache_pos.expand(b) if cache_pos.dim() == 0 \
                 else cache_pos
             if s == 1:
@@ -326,7 +326,7 @@ def apply_attention(
                     q.reshape(b, hkv, g, hd).contiguous(), cache.k, cache.v,
                     cache.k_codes, cache.k_scale, cache.v_codes,
                     cache.v_scale, cache.block_tables, slot_pos,
-                    cache.quant_lens)
+                    cache.quant_lens, window=window, softcap=cap)
                 out_old, m_old, l_old = o[:, :, :, None], m[..., None], \
                     l[..., None]
             else:
@@ -335,7 +335,8 @@ def apply_attention(
                     q.reshape(b, s, hkv, g, hd).permute(0, 2, 3, 1, 4)
                     .contiguous(), cache.k, cache.v, cache.k_codes,
                     cache.k_scale, cache.v_codes, cache.v_scale,
-                    cache.block_tables, slot_pos, cache.quant_lens)
+                    cache.block_tables, slot_pos, cache.quant_lens,
+                    window=window, softcap=cap)
         else:
             smax = cache["k"].shape[1]
             k_pos = torch.arange(smax, dtype=torch.int32, device=x.device)

@@ -449,6 +449,10 @@ class DecodeWorker:
 
     # ------------------------------------------------------------------
     @property
+    def free_slot_count(self) -> int:
+        return len(self.free_slots)
+
+    @property
     def occupancy(self) -> int:
         return len(self.slots)
 

@@ -4,10 +4,10 @@ through both ``ServingRuntime``s on the same reduced-config weights.
 
 Served, as the JAX runtime serves them: deepseek-moe-16b and
 llama4-scout-17b-a16e (MoE), qwen3-4b (qk-norm) and qwen2-vl-72b
-(M-RoPE), each in pool mode on the dense arena with the pinned
+(M-RoPE) and gemma2-9b (attention softcap, sliding window on alternate
+layers), each in pool mode on the dense arena with the pinned
 per-channel profile and in pd mode on the paged arena with a
-paged-eligible int8 per-token profile; gemma2-9b (softcap, sliding
-window) on the dense arena only.  ``pool_hit``, ``wire_bytes`` and every
+paged-eligible int8 per-token profile.  ``pool_hit``, ``wire_bytes`` and every
 ``breakdown`` entry must be equal, and greedy tokens equal up to a step
 where the JAX top-2 logit gap lies within the logit tolerance (atol 2e-2
 + rtol 1.6e-2 of the top logit), printed with ``-s``, as in
@@ -15,16 +15,15 @@ where the JAX top-2 logit gap lies within the logit tolerance (atol 2e-2
 
 Refused by both packages, with an exception: jamba and falcon-mamba
 (the slot arena holds attention caches only; falcon-mamba has no KV to
-extract) and whisper (the runtime's prompts carry no audio frames).  The
-port also refuses gemma2 on the paged arena, whose kernels apply neither
-a softcap nor a window; the JAX runtime serves it there through its
-gathered dense view.
+extract) and whisper (the runtime's prompts carry no audio frames).
+Gemma2's paged case runs the arena entries with its cap and its local
+layers' window (16 in the reduced config, so the 64-token prompts cross
+it); the JAX runtime applies both to its gathered dense view.
 
 The JAX side runs in one subprocess per architecture, all at once, with
 ``--xla_allow_excess_precision=false``
 (``python tests/test_torch_families_runtime.py OUT.json ARCH``).
 """
-import dataclasses
 import json
 import os
 import subprocess
@@ -54,10 +53,6 @@ SERVED = ["deepseek-moe-16b", "llama4-scout-17b-a16e", "qwen3-4b",
           "qwen2-vl-72b", "gemma2-9b"]
 REFUSED = ["jamba-v0.1-52b", "falcon-mamba-7b", "whisper-small"]
 BOTH = [("pool", False, "per_channel"), ("pd", True, "per_token_int8")]
-
-
-def _configs(arch):
-    return BOTH[:1] if arch == "gemma2-9b" else BOTH
 
 
 def _weights(pkg: str, arch: str):
@@ -118,7 +113,7 @@ def _jax_reference(out_path: str, arch: str) -> None:
         toks, _ = Q._prompts_for(w, 1, SEQ, seed)
         prompts[(w, seed)] = np.asarray(toks, np.int32)[0].tobytes()
     results = {}
-    for mode, paged, profile in (BOTH if arch in REFUSED else _configs(arch)):
+    for mode, paged, profile in BOTH:
         Q._jitted_steps.cache_clear()
         Q._paged_steps.cache_clear()
         log["prefill"].clear()
@@ -194,9 +189,9 @@ def port_models():
 
 
 @pytest.mark.parametrize("arch,mode,paged,profile",
-                         [(a, *c) for a in SERVED for c in _configs(a)],
+                         [(a, *c) for a in SERVED for c in BOTH],
                          ids=[f"{a}-{_config_id(*c)}" for a in SERVED
-                              for c in _configs(a)])
+                              for c in BOTH])
 def test_runtime_matches_jax(jax_runs, port_models, arch, mode, paged,
                              profile):
     from _runtime_scenario import run_scenario
@@ -243,34 +238,18 @@ def test_runtime_refuses_what_jax_refuses(jax_runs, port_models, arch, mode,
             run_scenario(rt)
 
 
-def test_gemma2_refused_on_the_paged_arena(port_models):
-    from _runtime_scenario import run_scenario
-    rt = _build("repro_torch", "pd", True, "per_token_int8",
-                port_models["gemma2-9b"], device="cpu")
-    with pytest.raises(NotImplementedError, match="paged arena"):
-        with one_thread():
-            run_scenario(rt)
-
-
-def test_paged_decode_refuses_softcap_without_window():
-    """A softcap model with no sliding window on the paged arena: the
-    arena kernels cannot cap the scores, so the decode step refuses it
-    rather than read uncapped ones."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.quality import _paged_caches, init_paged_pools
-    from repro_torch.models import decode_step, init_params
-    cfg = dataclasses.replace(get_config("gemma2-9b-reduced"),
-                              sliding_window=0, local_global_period=0)
-    assert cfg.attn_softcap and not any(s.local for s in cfg.layer_specs())
-    params = init_params(cfg, seed=0, device="cpu")
-    pool, qc, qs = init_paged_pools(cfg, 5, 8, 1, device="cpu")
-    caches = _paged_caches(pool, qc, qs,
-                           torch.tensor([[1, 2], [3, 4]], dtype=torch.int32),
-                           torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        decode_step(cfg, params, caches,
-                    torch.zeros((2, 1), dtype=torch.int32),
-                    torch.tensor([3, 5], dtype=torch.int32))
+def test_paged_decode_softcap_without_window_matches_jax():
+    """A softcap model with no sliding window on the paged arena (the
+    arena kernels cap every layer's scores, none windowed): the port's
+    decode step over paged caches against the JAX decode step over the
+    gathered view, a slot at kv_len 0 included."""
+    from test_torch_gemma2_paged import _paged_step_vs_jax
+    from test_torch_model import _close
+    changes = {"sliding_window": 0, "local_global_period": 0}
+    pl, jl = _paged_step_vs_jax(changes, 1, [40, 0, 33])
+    _close(pl, jl, frac=None)
+    np.testing.assert_array_equal(pl.argmax(-1).numpy(),
+                                  np.asarray(jl).argmax(-1))
 
 
 if __name__ == "__main__":

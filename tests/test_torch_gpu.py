@@ -15,7 +15,9 @@ decode_attention), decode_attention with bf16 q within 1 bf16 ulp, or
 within the f32 atol 2e-5 where one bf16 ulp is finer than that (outputs
 below 2.6e-3 in magnitude, whose last bits the f32 sums' order sets); the
 arena entries' m and l within rtol 1e-5 and their bf16 output within 2
-bf16 ulps; hadamard within 1e-5 of each row's L2
+bf16 ulps, also with gemma-2's softcap and sliding window (``window`` and
+``softcap``), where a row that sees no position gives m = -inf, l = 0
+and out = 0 in both; hadamard within 1e-5 of each row's L2
 norm against its plain version (cuBLAS sums in another order) and bit for
 bit against numpy's ``x @ h`` on the host at D 64, 128 and 256 (one
 in-order FMA chain per output, a BLAS micro-kernel's order).  The kernels
@@ -463,6 +465,60 @@ def test_split_edges_arena(cuda, w, lens):
     assert _bf16_ulps(out, r_out) <= 2
 
 
+# gemma-2's cap and window at its shape (Hkv 8, Gq 2, D 256) over
+# 320-position views (chunks of 16, stages of 128): (W, window, cap,
+# kv_lens), as chip_smoke.py's phase 2 holds them
+_WINDOW_EDGES = {
+    "window1": (1, 1, 50.0, [0, 1, 17, 100, 319, 200]),
+    "window2-nocap": (1, 2, 0.0, [0, 1, 17, 100, 319, 200]),
+    "window16-midchunk": (1, 16, 50.0, [0, 40, 100, 319, 24, 7]),
+    "window17-chunkedge": (1, 17, 50.0, [48, 64, 96, 0, 17, 1]),
+    "window40-below": (1, 40, 50.0, [300, 319, 150, 160, 0, 41]),
+    "window-past-length": (1, 4096, 50.0, [0, 1, 17, 100, 319, 200]),
+    "cap-only": (1, 0, 50.0, [0, 1, 17, 100, 319, 200]),
+    "verify5-window3": (5, 3, 50.0, [0, 40, 100, 315, 17, 200]),
+    "verify5-window16": (5, 16, 50.0, [48, 64, 96, 315, 17, 1]),
+    "verify2-window40-cap2": (2, 40, 2.0, [300, 318, 150, 160, 0, 41]),
+    "gemma2-decode": (1, 4096, 50.0, [1024, 4095, 4096, 4097, 6000]),
+    "gemma2-verify5": (5, 4096, 50.0, [1024, 4095, 4096, 4097, 6000]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WINDOW_EDGES))
+def test_arena_window_and_softcap(cuda, case):
+    """Both arena entries with a window and a cap against their plain
+    versions, each launched twice (bit-equal); the rows that see nothing
+    (kv_len 0, window 1, verify tokens past a short window) give m =
+    -inf, l = 0, out = 0."""
+    w, window, cap, lens = _WINDOW_EDGES[case]
+    pps = -(-(max(lens) + 6) // 16)
+    args = list(_arena_case(cuda, len(case), b=len(lens), hkv=8, gq=2,
+                            d=256, pps=pps))
+    args[8] = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    args[9] = torch.minimum(args[8], torch.tensor(
+        [0, 9, 1024, 160, 4096, 33][:len(lens)], dtype=torch.int32,
+        device=cuda))
+    if w == 1:
+        op, plain = paged_attention_arena_op, R.paged_attention_arena_ref
+    else:
+        b, hkv, gq, d = args[0].shape
+        gen = torch.Generator(device=cuda).manual_seed(w)
+        args[0] = torch.randn(b, hkv, gq, w, d, generator=gen,
+                              device=cuda).to(torch.bfloat16)
+        op, plain = (paged_verify_attention_arena_op,
+                     R.paged_verify_attention_arena_ref)
+    out, m, l = _two_launches(op, *args, window=window, softcap=cap)
+    r_out, r_m, r_l = plain(*args, window, cap)
+    torch.testing.assert_close(m, r_m, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-5, atol=0)
+    assert _bf16_ulps(out, r_out) <= 2
+    empty = torch.isneginf(m)
+    assert torch.equal(empty, torch.isneginf(r_m))
+    assert bool((l[empty] == 0).all()) and bool((out[empty] == 0).all())
+    if lens[0] == 0:
+        assert bool(empty[0].all())
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("w", [1, 2, 5])
 def test_split_edges_pallas(cuda, bits, w):
@@ -621,12 +677,14 @@ def test_runtime_launches_every_kernel(cuda):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b",
-                                  "llama4-scout-17b-a16e", "qwen2-vl-72b"])
+                                  "llama4-scout-17b-a16e", "qwen2-vl-72b",
+                                  "gemma2-9b"])
 def test_family_runtime_launches_every_kernel(cuda, arch):
     """A reduced MoE (Gq 1 for deepseek, 2 for llama4-scout's reduced
-    heads) or M-RoPE model served PD-separated on the paged arena goes
-    through all three kernels, and its routing and positions run on the
-    card."""
+    heads), M-RoPE or gemma-2 (softcap, window 16 on alternate layers,
+    crossed by the 64-token prompts) model served PD-separated on the
+    paged arena goes through all three kernels, and its routing and
+    positions run on the card."""
     from repro_torch.configs import get_config
     from repro_torch.core.profiles import Profile
     from repro_torch.core.strategy import StrategyConfig

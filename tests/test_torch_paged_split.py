@@ -62,44 +62,67 @@ def _arena_case(seed, b, hkv, gq, w, d, ps, pps, kv_lens, quant_lens):
 
 
 def _split_model(q, kp, vp, kc, ks, vc, vs, bt, kv_lens, quant_lens,
-                 chunk=16):
+                 window=0, softcap=0.0, chunk=16):
     """The arena entries' arithmetic in the kernels' steps: W = 1 is
     paged_attention_arena (scores as one warp sums them, the denominator
     over 128 virtual threads), W > 1 paged_verify_attention_arena (scores
-    in order over D, the denominator over 32).  Returns (out, m, l) shaped
-    as the entry returns them."""
+    in order over D, the denominator over 32).  ``window`` and ``softcap``
+    as the ``_window_cap`` entries take them: each scaled score capped
+    before the workspace and the chunk max, each row's own lower bound,
+    chunks wholly below the tile's lowest bound skipped in phase A (max
+    -inf, no scores), and phase B's walk started at the stage that holds
+    that bound.  Returns (out, m, l) shaped as the entry returns them."""
     verify = q.dim() == 5
     b, hkv, gq = q.shape[:3]
+    w = q.shape[3] if verify else 1
     d = q.shape[-1]
     k, v = R._arena_kv(kp, vp, kc, ks, vc, vs, bt, quant_lens)
     s = k.shape[1]
     qr = q.float().reshape(b, hkv, -1, 1, d)
     kt = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B, Hkv, 1, S, D)
     dot = R._seq_dot(qr, kt) if verify else R._warp_dot(qr, kt)
-    scores = _bf16(dot) * (1.0 / math.sqrt(d))              # (B, Hkv, R, S)
-    seen = (torch.arange(s)[None, :] < kv_lens.long()[:, None])[:, None,
-                                                                None, :]
-    # phase A: each chunk's max over the positions its rows see
+    scores = R._capped(_bf16(dot) * (1.0 / math.sqrt(d)),   # (B, Hkv, R, S)
+                       softcap)
+    lens = kv_lens.long()[:, None, None]                    # (B, 1, 1)
+    lo = torch.zeros_like(lens)
+    if window:                       # row g * W + j is token j
+        j = torch.arange(gq * w)[None, None, :] % w
+        lo = (lens + j - window + 1).clamp_min(0)           # (B, 1, R)
+    pos = torch.arange(s)
+    seen = (pos < lens[..., None]) & (pos >= lo[..., None])  # (B, 1, R, S)
+    tile_lo = lo.amin(-1)[:, 0]                             # (B,)
+    # phase A: each chunk's max over the positions its rows see; a chunk
+    # wholly below the tile's lowest bound exits with -inf
     masked = torch.where(seen, scores, -math.inf)
-    cmax = [masked[..., c:c + chunk].amax(-1) for c in range(0, s, chunk)]
+    cmax = []
+    for c in range(0, s, chunk):
+        below = (c + torch.clamp(kv_lens.long() - c, max=chunk)
+                 <= tile_lo)[:, None, None]
+        cmax.append(torch.where(below, -math.inf,
+                                masked[..., c:c + chunk].amax(-1)))
     m = torch.stack(cmax, -1).amax(-1)
-    # phase B: stages of 128 positions, the denominator's virtual threads
-    # and one chain per (row, channel) over the positions in order
+    # phase B: stages of 128 positions from the tile's first seen one, the
+    # denominator's virtual threads and one chain per (row, channel) over
+    # the positions in order
     lw = 32 if verify else 128
     acc_l = torch.zeros(scores.shape[:-1] + (lw,))
     out = torch.zeros(scores.shape[:-1] + (d,))
     vt = v.float().permute(0, 2, 1, 3)                      # (B, Hkv, S, D)
     for t0 in range(0, s, _STAGE):
         n = min(_STAGE, s - t0)
+        walked = (tile_lo // _STAGE * _STAGE <= t0)[:, None, None]
         p = torch.where(seen[..., t0:t0 + n],
                         torch.exp(scores[..., t0:t0 + n] - m[..., None]),
                         torch.zeros(()))
         for r in range(lw):
             for tt in range(r, n, lw):
-                acc_l[..., r] = acc_l[..., r] + p[..., tt]
+                acc_l[..., r] = torch.where(walked, acc_l[..., r] + p[..., tt],
+                                            acc_l[..., r])
         pb = _bf16(p)
         for tt in range(n):
-            out = out + pb[..., tt, None] * vt[:, :, None, t0 + tt]
+            out = torch.where(walked[..., None],
+                              out + pb[..., tt, None] * vt[:, :, None, t0 + tt],
+                              out)
     trees = R._butterfly(acc_l.reshape(acc_l.shape[:-1] + (lw // 32, 32)))
     l = trees[..., 0]
     for g in range(1, lw // 32):
@@ -110,27 +133,47 @@ def _split_model(q, kp, vp, kc, ks, vc, vs, bt, kv_lens, quant_lens,
 
 
 _CASES = {
-    # (B, Hkv, Gq, W, D, PS, PPS, kv_lens, quant_lens): views of 160 and
-    # 168 positions, so two stages and ten or eleven chunks; lengths at a
-    # stage boundary and either side of it, shorter than a chunk, and the
-    # parked row at view - 1; quant_lens mid-chunk
-    "decode": (3, 2, 4, 1, 128, 8, 20, [128, 65, 159], [40, 0, 129]),
-    "decode-short": (3, 2, 4, 1, 64, 8, 20, [1, 17, 63], [1, 9, 0]),
-    "verify-w2": (3, 2, 4, 2, 128, 8, 21, [127, 64, 167], [40, 0, 129]),
-    "verify-w5": (3, 2, 4, 5, 64, 8, 21, [129, 17, 1], [0, 9, 1]),
+    # (B, Hkv, Gq, W, D, PS, PPS, kv_lens, quant_lens, window, softcap):
+    # views of 160 and 168 positions, so two stages and ten or eleven
+    # chunks; lengths at a stage boundary and either side of it, shorter
+    # than a chunk, and the parked row at view - 1; quant_lens mid-chunk
+    "decode": (3, 2, 4, 1, 128, 8, 20, [128, 65, 159], [40, 0, 129], 0, 0.0),
+    "decode-short": (3, 2, 4, 1, 64, 8, 20, [1, 17, 63], [1, 9, 0], 0, 0.0),
+    "verify-w2": (3, 2, 4, 2, 128, 8, 21, [127, 64, 167], [40, 0, 129], 0,
+                  0.0),
+    "verify-w5": (3, 2, 4, 5, 64, 8, 21, [129, 17, 1], [0, 9, 1], 0, 0.0),
+    # gemma-2's local layers and cap: bounds mid-chunk and on a chunk edge
+    # (lo 109, 46 and 140, so slot 2 skips stage 0), kv_len 0, a window
+    # past the length, window 1 (every row empty), and W = 5 under window
+    # 3 (tokens 2-4 see nothing)
+    "decode-window": (3, 2, 4, 1, 128, 8, 20, [128, 65, 159], [40, 0, 129],
+                      20, 2.0),
+    "decode-window-edge": (3, 2, 4, 1, 64, 8, 20, [0, 48, 159], [0, 9, 0],
+                           17, 50.0),
+    "decode-window-long": (3, 2, 4, 1, 64, 8, 20, [0, 17, 100], [0, 9, 0],
+                           4096, 50.0),
+    "decode-window1": (3, 2, 4, 1, 64, 8, 20, [0, 17, 159], [0, 9, 0], 1,
+                       2.0),
+    "decode-cap": (3, 2, 4, 1, 128, 8, 20, [0, 65, 159], [0, 0, 129], 0,
+                   2.0),
+    "verify-w2-window": (3, 2, 4, 2, 128, 8, 21, [127, 64, 167],
+                         [40, 0, 129], 16, 2.0),
+    "verify-w5-window3": (3, 2, 4, 5, 64, 8, 21, [150, 17, 0], [0, 9, 0], 3,
+                          50.0),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))
 def test_split_arithmetic_equals_the_plain_version(case):
-    """The split changes no rounding point and no sum's order: the model
-    equals paged_(verify_)attention_arena_ref bit for bit."""
-    b, hkv, gq, w, d, ps, pps, kv, qv = _CASES[case]
+    """The split changes no rounding point and no sum's order, and the
+    window's skips only drop terms that are exactly 0: the model equals
+    paged_(verify_)attention_arena_ref bit for bit."""
+    b, hkv, gq, w, d, ps, pps, kv, qv, window, cap = _CASES[case]
     args = _arena_case(sum(map(ord, case)), b, hkv, gq, w, d, ps, pps, kv,
                        qv)
     plain = (R.paged_attention_arena_ref if w == 1 else
-             R.paged_verify_attention_arena_ref)(*args)
-    for got, want in zip(_split_model(*args), plain):
+             R.paged_verify_attention_arena_ref)(*args, window, cap)
+    for got, want in zip(_split_model(*args, window, cap), plain):
         assert torch.equal(got, want)
 
 
@@ -144,7 +187,7 @@ def test_split_arithmetic_matches_jax_decode_read(seed):
     """The model against the JAX package's decode read of the paged arena
     (_blend_quant over _paged_view, multihead_attention's stats), at the
     arena tolerances: m and l rel 1e-5, out 2 bf16 ulps."""
-    b, hkv, gq, w, d, ps, pps, kv, qv = _CASES["decode"]
+    b, hkv, gq, w, d, ps, pps, kv, qv, _, _ = _CASES["decode"]
     args = _arena_case(seed, b, hkv, gq, w, d, ps, pps, kv, qv)
     q, *pools, bt, kv_lens, quant_lens = args
 

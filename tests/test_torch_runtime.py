@@ -82,6 +82,21 @@ def _build(pkg, mode, paged, profile, reference_model=None, **extra):
     return rt
 
 
+def _trace_free_slots(rt):
+    """A list that fills, after each runtime iteration, with every decode
+    worker's ``free_slot_count`` (``rt.step`` wrapped on the instance, so
+    ``run()``'s own iterations count too)."""
+    trace, step = [], rt.step
+
+    def traced():
+        out = step()
+        trace.append([dw.free_slot_count for dw in rt.decode_workers])
+        return out
+
+    rt.step = traced
+    return trace
+
+
 def _result(rt, outputs):
     return {r: dict(outputs[r], wire_bytes=int(c.wire_bytes),
                     breakdown=dict(c.breakdown))
@@ -134,8 +149,10 @@ def _jax_reference(out_path: str) -> None:
         log["prefill"].clear()
         log["decode"].clear()
         rt = _build("repro", mode, paged, profile, ref)
+        free = _trace_free_slots(rt)
         out = _result(rt, run_scenario(rt))
         jax.effects_barrier()
+        results["free_slot_count " + _config_id(mode, paged, profile)] = free
         first_gap = dict(log["prefill"])
         # Decode rows: a slot's live rows sit at SEQ.. (parked rows are
         # pinned past every live position); each occupant of a slot
@@ -228,6 +245,26 @@ def test_runtime_matches_jax(jax_runs, port_model, mode, paged, profile):
             assert dw.page_table.free_pages == dw.page_table.num_pages - 1
     for r in rt.completed:
         assert sum(r.breakdown.values()) == pytest.approx(r.jct, abs=1e-9)
+
+
+@pytest.mark.parametrize("mode,paged", [("pool", False), ("pool", True),
+                                        ("pd", False), ("pd", True)])
+def test_free_slot_count_matches_jax(jax_runs, port_model, mode, paged):
+    """``DecodeWorker.free_slot_count`` (the reference's public property)
+    equals the JAX worker's after every iteration of the pinned
+    scenario."""
+    from _runtime_scenario import run_scenario
+    rt = _build("repro_torch", mode, paged, "per_token_int8", port_model,
+                device="cpu")
+    free = _trace_free_slots(rt)
+    with one_thread():
+        run_scenario(rt)
+    want = jax_runs["free_slot_count " + _config_id(mode, paged,
+                                                    "per_token_int8")]
+    assert free == want
+    assert all(dw.free_slot_count == len(dw.free_slots)
+               for dw in rt.decode_workers)
+    assert min(min(f) for f in free) < max(max(f) for f in free)
 
 
 def test_paged_quant_resident_hits_skip_decompress(port_model):
