@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-Eight phases, in order; any failure exits non-zero and no phase's error
+Nine phases, in order; any failure exits non-zero and no phase's error
 is caught:
 
 1. Build: compile every Hopper kernel of ``src/repro_torch/kernels/csrc``
@@ -135,12 +135,30 @@ is caught:
    the two-model draft (``spec_k=4``), which must launch the verify entry
    with the cap and the window.
 
+9. The multi-card path: (a) ``python -m repro_torch.launch.dryrun`` in
+   processes of their own (the fake 512-rank group), started after (b)
+   and running beside (c): llama3.1-8b's train_4k, prefill_32k and
+   decode_32k and tiny-lm's train_4k and decode_32k on the 16x16 and
+   2x16x16 meshes,
+   every cell ``[ok]`` with its H100 terms, dominant term, useful ratio
+   (in (0, 1]) and memory a device printed, and llama3.1-8b's decode_32k
+   on 16x16 moving collective bytes; (b) llama3.1-8b at full width and
+   depth in bf16, a decode step at B 8 over a 4,096-position dense cache
+   and a prefill of B 1 x 4,096, and phase 7b's 4-layer train step, each
+   timed on the card (CUDA events) beside the report of the same step on
+   a 1x1 mesh, and held to no less than 0.95 x t_compute and 0.95 x its
+   parameters' bytes over HBM bandwidth; (c) phase 7a's trained model
+   restored in a process of its own on a one-rank NCCL group as DTensors
+   on a 1x1 ("data", "model") mesh by the port's sharding rules, bit-equal
+   to the saved arrays, its eval loss equal to phase 7a's bit for bit.
+
 Prints per-request TTFT/JCT/wire bytes/breakdowns, the speculative run's
 verify steps, committed tokens and accept rates beside the plain run's
 TTFT and JCT, phase 5's profiles and per-batch breakdowns, phase 6's
 per-request route, tier, TTFT, JCT and breakdown, its stores' tiers and
 the simulator's gap, phase 7's training and transfer numbers, phase 8's
-serving run and per-family checks, one JSON line of kernel results (with
+serving run and per-family checks, phase 9's report rows beside the
+card's times and the restore, one JSON line of kernel results (with
 each kernel's launches in phases 6, 7, 8a and 8c),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Exits
@@ -154,6 +172,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2846,8 +2865,10 @@ def plain_roundtrip(x, bits: int, dtype):
                               dtype=dtype).reshape(x.shape)
 
 
-def reference_training(torch, dev):
-    """Phase 7a.  Returns the launch counts of the quality evaluation."""
+def reference_training(torch, dev, keep_dir: Path):
+    """Phase 7a.  Returns (the launch counts of the quality evaluation,
+    the eval loss); the trained parameters are saved to ``keep_dir`` for
+    phase 9c."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import quality as Q
     from repro_torch.core.strategy import BASELINES
@@ -2890,6 +2911,9 @@ def reference_training(torch, dev):
               "checkpoint restores the trained state bit for bit")
     print(f"phase 7a checkpoint: {len(pairs)} leaves (params and AdamW "
           f"state) saved and restored onto {dev}, bit for bit")
+    CheckpointManager(str(keep_dir)).save(
+        Q.REF_STEPS, {"params": params},
+        metadata={"arch": cfg.name, "eval_loss": loss})
 
     reset_launches()
     t0 = time.perf_counter()
@@ -2903,7 +2927,7 @@ def reference_training(torch, dev):
     counts = launches()
     print(f"phase 7a quality: {time.perf_counter() - t0:.2f} s wall, "
           f"launches {counts}")
-    return counts
+    return counts, loss
 
 
 def full_width_training(torch, dev):
@@ -3560,6 +3584,223 @@ def families_phase(torch, dev):
         family_check(torch, dev, arch)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the multi-card path (the H100 cost report, elastic restore)
+# ---------------------------------------------------------------------------
+# 9a: the dry-run's cells, (arch, shapes); the fake 512-rank group needs
+# a process of its own, as the JAX package's dry-run does
+DRYRUNS = (("llama3.1-8b", "train_4k,prefill_32k,decode_32k"),
+           ("tiny-lm", "train_4k,decode_32k"))
+# 9b: steps the card runs for real beside the report's terms
+DECODE_B, DECODE_LEN, PREFILL_B, PREFILL_LEN = 8, 4096, 1, 4096
+REPORT_CALLS = 10             # a run of calls between CUDA events
+
+
+def start_dryruns():
+    """Phase 9a's dry-runs, started on the host's cores once 9b's
+    host-bound steps are timed; 9c runs beside them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for arch, shapes in DRYRUNS:
+        path = ROOT / "build" / f"dryrun_{arch}.jsonl"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        # its output goes to a file, which no pipe buffer can stall
+        log = path.with_suffix(".log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shapes, "--mesh", "both", "--out",
+                 str(path)],
+                cwd=str(ROOT), env=env, stdout=f, stderr=subprocess.STDOUT)
+        out[arch] = (proc, path, log, shapes.split(","))
+    return out
+
+
+def dryrun_phase(dryruns) -> None:
+    """Phase 9a: every cell ``[ok]`` on both production meshes, its terms
+    printed, ``0 < useful_ratio <= 1``; llama3.1-8b's decode_32k on 16x16
+    shows collective bytes (its KV cache is sequence-sharded: 8 KV heads
+    on a 16-way model axis)."""
+    for arch, (proc, path, log, shapes) in dryruns.items():
+        proc.wait(timeout=600)
+        check(proc.returncode == 0,
+              f"dry-run of {arch} exit {proc.returncode}:\n"
+              f"{log.read_text()[-6000:]}")
+        rows = [json.loads(line) for line in path.read_text().splitlines()]
+        ok = {(r["shape"], r["mesh"]) for r in rows if r["status"] == "ok"}
+        check(ok == {(s, m) for s in shapes for m in ("16x16", "2x16x16")},
+              f"dry-run of {arch}: every cell [ok]")
+        for r in rows:
+            print(f"phase 9a {arch} x {r['shape']} x {r['mesh']}: dominant "
+                  f"{r['dominant']}, t_compute {r['t_compute']:.4e} s, "
+                  f"t_memory {r['t_memory']:.4e} s, t_collective "
+                  f"{r['t_collective']:.4e} s; per device {r['hlo_flops']:.4e} "
+                  f"FLOPs, {r['hlo_bytes']:.4e} B, collectives "
+                  f"{r['coll_bytes']:.4e} B {r['coll_breakdown']}; useful "
+                  f"{r['useful_ratio']:.4f}; {r['mem_per_device'] / 1e9:.3f} "
+                  f"GB a device (fits {r['fits_hbm']}); traced in "
+                  f"{r['trace_seconds']:.1f} s")
+            check(0 < r["useful_ratio"] <= 1,
+                  f"{arch} {r['shape']} {r['mesh']}: 0 < useful_ratio <= 1")
+            if (arch, r["shape"], r["mesh"]) == ("llama3.1-8b", "decode_32k",
+                                                 "16x16"):
+                check(r["coll_bytes"] > 0, "llama3.1-8b decode_32k on 16x16 "
+                      "moves collective bytes (sequence-sharded KV)")
+
+
+def report_vs_card(torch, dev) -> None:
+    """Phase 9b: llama3.1-8b at full width and depth in bf16 (a decode
+    step at B 8 over a 4,096-position dense cache, a prefill of B 1 x
+    4,096) and phase 7b's 4-layer train step (f32 masters, 4 x 1,024,
+    remat), each timed on the card beside the report of the same step on
+    a 1x1 mesh.  No card beats 0.95 x t_compute or 0.95 x the parameters'
+    bytes read once over HBM_BW; t_memory / measured is the unfused
+    count's over-count (printed, not gated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution.optimizer import OptConfig, init_opt_state
+    from repro_torch.distribution.steps import (
+        make_decode_step, make_prefill_step, make_train_step)
+    from repro_torch.launch.dryrun import one_device_report
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.transformer import init_cache, init_params
+
+    def hold(label, cfg, shape, fn, params):
+        report = one_device_report(cfg, shape, name=ARCH)
+        ms = time_ms(torch, fn, iters=REPORT_CALLS, warmup=1)
+        pbytes = sum(p.numel() * p.element_size() for _, p in flatten(params))
+        floor_ms = pbytes / HBM_BW * 1e3
+        tc, tm = report.t_compute * 1e3, report.t_memory * 1e3
+        print(f"phase 9b {label}: measured {ms:.3f} ms a call (CUDA events, "
+              f"median of 3 x {REPORT_CALLS}); report on 1x1: "
+              f"{report.hlo_flops:.4e} FLOPs, t_compute {tc:.3f} ms, "
+              f"t_memory {tm:.3f} ms ({report.hlo_bytes:.4e} B unfused), "
+              f"dominant {report.dominant}; parameters read once "
+              f"{pbytes / 1e9:.3f} GB = {floor_ms:.3f} ms; measured / "
+              f"t_compute {ms / tc:.3f}, t_memory / measured {tm / ms:.3f}, "
+              f"achieved {report.hlo_flops / (ms * 1e-3) / 1e12:.1f} "
+              f"TFLOP/s")
+        check(ms >= 0.95 * tc, f"9b {label}: measured >= 0.95 x t_compute")
+        check(ms >= 0.95 * floor_ms,
+              f"9b {label}: measured >= 0.95 x the parameter bytes' floor")
+
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        caches = init_cache(cfg, DECODE_B, DECODE_LEN, device=dev)
+        for _, x in flatten(caches):
+            x.normal_(generator=gen)
+        tokens = torch.randint(0, cfg.vocab_size, (DECODE_B, 1),
+                               generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.tensor(DECODE_LEN - 1, dtype=torch.int32, device=dev)
+        step = make_decode_step(cfg)
+        hold(f"decode B {DECODE_B} over {DECODE_LEN} positions", cfg,
+             ShapeSpec("decode", "decode", DECODE_LEN, DECODE_B),
+             lambda: step(params, caches, tokens, pos), params)
+        del caches
+        prompt = {"tokens": torch.randint(
+            0, cfg.vocab_size, (PREFILL_B, PREFILL_LEN), generator=gen,
+            device=dev, dtype=torch.int32)}
+        step = make_prefill_step(cfg, max_len=PREFILL_LEN)
+        hold(f"prefill B {PREFILL_B} x {PREFILL_LEN}", cfg,
+             ShapeSpec("prefill", "prefill", PREFILL_LEN, PREFILL_B),
+             lambda: step(params, prompt), params)
+    del params, step
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    params = init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    tokens, mask = make_batch("mixed", TRAIN_BATCH, TRAIN_SEQ, seed=7)
+    batch = {"tokens": torch.as_tensor(tokens).to(dev),
+             "mask": torch.as_tensor(mask[:, 1:]).to(dev)}
+    step = make_train_step(cfg, OptConfig(), remat=True)
+    hold(f"train step, {TRAIN_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ}",
+         cfg, ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+         lambda: step(params, opt, batch), params)
+    del params, opt, step
+    torch.cuda.empty_cache()
+
+
+def restore_phase(keep_dir: Path, loss7a: float) -> None:
+    """Phase 9c: phase 7a's model restored in a process of its own, on a
+    one-rank NCCL group, as DTensors on a 1x1 ("data", "model") mesh on
+    cuda:0 by the port's rules; bit-equal to the saved arrays, and its
+    eval loss from the local tensors equal to phase 7a's."""
+    with tempfile.TemporaryDirectory() as d:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--restore-check", str(keep_dir), "--pod-init",
+             str(Path(d) / "init")], capture_output=True, text=True,
+            timeout=300)
+    check(proc.returncode == 0, f"restore process exit {proc.returncode}:"
+          f"\n{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    loss = float.fromhex(got["loss"])
+    print(f"phase 9c: {got['leaves']} leaves restored as DTensors "
+          f"{got['placements']} on {got['device']} over a one-rank NCCL "
+          f"group, {got['bit_equal']} bit-equal to the saved arrays; eval "
+          f"loss from the local tensors {loss:.9f} (phase 7a {loss7a:.9f})")
+    check(got["dtensors"] == got["bit_equal"] == got["leaves"] > 0,
+          "every restored leaf a DTensor on the card, bit-equal")
+    check(loss == loss7a, "the restored model's eval loss equals phase 7a's "
+          "bit for bit")
+
+
+def restore_main(torch, ckpt_dir: Path, init: str) -> int:
+    """Phase 9c's restoring rank (its own process)."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution.sharding import tree_shardings
+    from repro_torch.distribution.steps import make_eval_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.axes import param_axes
+    from repro_torch.models.convert import flatten, tree_map
+    from repro_torch.models.transformer import init_params
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    mesh = make_test_mesh(data=1, model=1, device_type="cuda")
+    mgr = CheckpointManager(str(ckpt_dir))
+    cfg = get_config(mgr.metadata()["arch"])
+    template = {"params": init_params(cfg, device="meta")}
+    shardings = {"params": tree_shardings(param_axes(cfg),
+                                          template["params"], mesh)}
+    got = mgr.restore(template, shardings=shardings)
+    step_dir = ckpt_dir / f"step_{mgr.latest_step():08d}"
+    out = {"leaves": 0, "dtensors": 0, "bit_equal": 0,
+           "device": str(dev), "placements": set()}
+    for i, (_, x) in enumerate(flatten(got)):
+        out["leaves"] += 1
+        if isinstance(x, DTensor) and x.device.type == "cuda":
+            out["dtensors"] += 1
+            out["placements"].add(str(tuple(x.placements)))
+        saved = np.load(step_dir / f"leaf_{i:05d}.npy")
+        host = x.full_tensor().cpu().numpy()
+        if host.dtype == saved.dtype and np.array_equal(host, saved):
+            out["bit_equal"] += 1
+    out["placements"] = sorted(out["placements"])
+    local = tree_map(lambda x: x.to_local(), got["params"])
+    tokens, mask = make_batch("mixed", 16, 256, seed=EVAL_SEED)
+    batch = {"tokens": torch.as_tensor(tokens).to(dev),
+             "mask": torch.as_tensor(mask[:, 1:]).to(dev)}
+    out["loss"] = float(make_eval_step(cfg)(local, batch)["loss"]).hex()
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv) -> int:
     import argparse
 
@@ -3576,6 +3817,8 @@ def main(argv) -> int:
     ap.add_argument("--pod", type=int, default=None,
                     help=argparse.SUPPRESS)   # one pod of phase 7c
     ap.add_argument("--pod-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--restore-check", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # phase 9c's restoring rank
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3584,6 +3827,8 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     if args.pod is not None:
         return pod_main(torch, args.pod, args.pod_init)
+    if args.restore_check is not None:
+        return restore_main(torch, args.restore_check, args.pod_init)
     if args.attention_times is not None:
         sys.path.insert(0, str(args.attention_times))
         from repro_torch.kernels import ops
@@ -3729,8 +3974,10 @@ def main(argv) -> int:
     print(f"before phase 7: {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
           f"GiB allocated")
     t7 = time.perf_counter()
-    per_part = [reference_training(torch, dev),
-                full_width_training(torch, dev), cross_pod_phase(torch)]
+    keep = tempfile.TemporaryDirectory()      # phase 7a's model, for 9c
+    counts7a, loss7a = reference_training(torch, dev, Path(keep.name))
+    per_part = [counts7a, full_width_training(torch, dev),
+                cross_pod_phase(torch)]
     print(f"phase 7: {time.perf_counter() - t7:.2f} s wall")
     phase7 = {k: sum(c[op] for c in per_part) for k, op in op_of.items()}
 
@@ -3748,6 +3995,23 @@ def main(argv) -> int:
     phase8c = {k: counts[op] for k, op in op_of.items()}
     print(f"launches on the phase 8c path: {phase8c}")
     print(f"phase 8: {time.perf_counter() - t8:.2f} s wall")
+
+    # ---- 9. the multi-card path: the H100 cost report, elastic restore ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    report_vs_card(torch, dev)
+    dryruns = start_dryruns()         # on the host's cores, beside 9c
+    try:
+        restore_phase(Path(keep.name), loss7a)
+        keep.cleanup()
+        dryrun_phase(dryruns)
+    finally:
+        for proc, *_ in dryruns.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase 9: {time.perf_counter() - t9:.2f} s wall")
 
     meta = {
         "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",

@@ -10,9 +10,14 @@ its on-disk layout, so either package restores what the other wrote:
   - ``save(..., background=True)`` copies every leaf to host memory
     synchronously and writes on a thread (training continues during I/O,
     and may update its tensors in place meanwhile);
+  - ``save`` takes DTensor leaves too: every rank gathers each one
+    (``full_tensor``) and rank 0 writes the files, the same files as for
+    plain tensors;
   - ``restore`` maps leaves onto a *template* tree and places them on
-    ``device`` — restoring onto another device than the one that wrote
-    the checkpoint is just a different placement;
+    ``device``, or with ``shardings`` (a matching tree of ``(mesh,
+    placements)``) as DTensors on the current mesh — restoring onto
+    another device or mesh than the one that wrote the checkpoint
+    (elastic scaling) is just a different placement;
   - ``keep`` bounds disk usage by pruning old steps after a successful
     write.
 """
@@ -27,12 +32,17 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.convert import leaves, tree_map
 
 
 def _host(x) -> np.ndarray:
-    """A host copy of a leaf that later in-place updates cannot reach."""
+    """A host copy of a leaf that later in-place updates cannot reach (a
+    DTensor gathered whole: a collective, so every rank calls it)."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x)
@@ -62,7 +72,12 @@ class CheckpointManager:
         """Write a checkpoint; ``background=True`` returns after the host
         snapshot and flushes on a writer thread."""
         self.wait()
-        host = [_host(x) for x in leaves(tree)]
+        flat = leaves(tree)
+        host = [_host(x) for x in flat]
+        sharded = any(isinstance(x, DTensor) for x in flat)
+        if sharded and dist.get_rank() != 0:
+            dist.barrier()          # rank 0 writes; the others wait for it
+            return
 
         def _write():
             d = self._step_dir(step)
@@ -86,11 +101,13 @@ class CheckpointManager:
             tmp.rename(d)
             self._prune()
 
-        if background:
+        if background and not sharded:
             self._pending = threading.Thread(target=_write, daemon=True)
             self._pending.start()
         else:
             _write()
+            if sharded:
+                dist.barrier()
 
     def wait(self) -> None:
         if self._pending is not None:
@@ -106,10 +123,14 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> Any:
+                device=None, shardings: Any = None) -> Any:
         """Restore onto ``template``'s structure (nested dicts; its leaves
         give only their count and places).  Leaves land on ``device``, or
-        where the template's leaf lies when it is None."""
+        where the template's leaf lies when it is None.  ``shardings`` (a
+        tree like ``template`` of ``(mesh, placements)`` leaves, as
+        ``distribution.sharding.to_named`` gives them; a None leaf is
+        placed as without it) lands each leaf as a DTensor on the current
+        mesh, every rank keeping its own shard of the file's array."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -123,12 +144,20 @@ class CheckpointManager:
                              f"{manifest['n_leaves']} vs template {n}")
         host = iter([np.load(d / f"leaf_{i:05d}.npy") for i in range(n)])
 
-        def place(t):
+        def place(t, sharding=None):
+            arr = torch.from_numpy(next(host))
+            if sharding is not None:
+                mesh, placements = sharding
+                # each rank read the whole file: no scatter from a source
+                return distribute_tensor(arr.to(mesh.device_type), mesh,
+                                         placements, src_data_rank=None)
             dev = device if device is not None else (
                 t.device if isinstance(t, torch.Tensor) else "cpu")
-            return torch.from_numpy(next(host)).to(dev)
+            return arr.to(dev)
 
-        return tree_map(place, template)
+        if shardings is None:
+            return tree_map(place, template)
+        return tree_map(place, template, shardings)
 
     def metadata(self, step: Optional[int] = None) -> Dict:
         if step is None:

@@ -20,6 +20,7 @@ import torch.distributed as dist
 from repro_torch.distribution.kv_transfer import (
     dequantize_rows,
     pack_payload,
+    pod_group,
     quantize_rows,
     ring_hop,
     unpack_payload,
@@ -74,11 +75,13 @@ def make_cross_pod_grad_sync(process_group=None, bits: int = 8,
                              group: int = 64) -> Callable:
     """Average gradients across pods with quantized exchange.
 
-    Each rank of ``process_group`` is one pod: it keeps its own grads in
+    Each rank of ``process_group`` (a group, or a ``DeviceMesh`` whose
+    "pod" dimension's group it takes) is one pod: it keeps its own grads in
     f32 and receives its peers' as int codes + f16 scales, over a ring of
     npod-1 hops (hop k: send to rank r+k, receive from rank r-k), adding
     them in hop order as the JAX package's ``ppermute`` chain does.
     Returns ``sync(grads) -> grads``."""
+    process_group = pod_group(process_group)
 
     def sync(grads):
         npod = dist.get_world_size(process_group)

@@ -24,6 +24,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.kernels import dequant_unpack_op, quant_pack_op
 from repro_torch.kernels import ref
@@ -154,12 +155,23 @@ def _leaf_group(x: torch.Tensor, bits: int, group: int) -> int:
     return g
 
 
+def pod_group(mesh_or_group):
+    """The process group the cross-pod paths run on: a ``DeviceMesh``'s
+    "pod" dimension (the JAX package's functions take a mesh), or a
+    process group as it is (None: the default group)."""
+    if isinstance(mesh_or_group, DeviceMesh):
+        return mesh_or_group.get_group("pod")
+    return mesh_or_group
+
+
 def make_kv_transfer(process_group=None, bits: int = 4, group: int = 64):
     """Build the KV migration: every rank (pod) ships its cache to rank
-    ``(r + 1) % n`` of ``process_group`` and receives rank ``(r - 1) %
+    ``(r + 1) % n`` of ``process_group`` (a group, or a ``DeviceMesh``
+    whose "pod" dimension's group it takes) and receives rank ``(r - 1) %
     n``'s.  bits=16 ships the leaves as they are; bits in {8, 4} use the
     quantizer.  Returns ``fn(cache) -> cache``; ``fn.wire_bytes`` is the
     size of the last payload sent."""
+    process_group = pod_group(process_group)
 
     def fn(cache):
         flat = leaves(cache)

@@ -64,8 +64,8 @@ def init_opt_state(params) -> Dict[str, Any]:
     """``mu`` and ``nu`` as f32 zeros in the parameters' tree, ``step`` an
     int32 scalar on their device."""
     dev = leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    # zeros_like keeps a DTensor parameter's placement (the dry-run)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 

@@ -17,16 +17,20 @@ from repro_torch.distribution.optimizer import OptConfig, adamw_update
 from repro_torch.models import decode_step as model_decode
 from repro_torch.models import forward, prefill
 from repro_torch.models.convert import leaves, tree_map
+from repro_torch.utils import dtensor_step
 
 AUX_LOSS_WEIGHT = 0.01
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: Optional[torch.Tensor]) -> torch.Tensor:
-    logits = logits.float()
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    nll = dtensor_step.nll(_nll, logits.float(), targets)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -61,7 +65,8 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, remat: bool = True,
         grad_of = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
         # pop: once the transform returns, nothing holds the raw gradients
         # (7.7 GB at phase 7b's full width) through the optimizer
-        grads = tree_map(lambda p: grad_of.pop(id(p)), live)
+        grads = tree_map(lambda p: dtensor_step.grad(grad_of.pop(id(p)), p),
+                         live)
         with torch.no_grad():
             if grad_transform is not None:
                 grads, opt_state = grad_transform(grads, opt_state)
@@ -74,10 +79,11 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, remat: bool = True,
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
-    """(params, batch) -> (last-token logits, caches)."""
+    """(params, batch[, caches]) -> (last-token logits, caches);
+    ``caches`` are zeroed buffers to fill (``models.prefill``)."""
 
-    def step(params, batch):
-        return prefill(cfg, params, batch, max_len=max_len)
+    def step(params, batch, caches=None):
+        return prefill(cfg, params, batch, max_len=max_len, caches=caches)
 
     return step
 

@@ -21,6 +21,8 @@ from repro_torch.models.transformer import init_cache
 
 def _arr(shape, dtype, rng: Optional[np.random.Generator], device,
          kind: str = "normal", maxval: int = 2) -> torch.Tensor:
+    if torch.device(device).type == "meta":   # shapes only (the dry-run)
+        return torch.empty(shape, dtype=dtype, device=device)
     if kind == "tokens":
         a = rng.integers(0, maxval, size=shape)
     elif kind == "ones":
@@ -45,7 +47,8 @@ def make_inputs(cfg: ModelConfig, kind: str, seq: int, batch: int,
     """``kind`` train | prefill | decode.  Returns
        train:   {"batch": {...}}
        prefill: {"batch": {...}, "max_len": int}
-       decode:  {"tokens", "pos", "caches"} (``pos`` a scalar)."""
+       decode:  {"tokens", "pos", "caches"} (``pos`` a scalar).
+    ``device="meta"`` gives the shapes only and draws nothing."""
     rng = np.random.default_rng(seed)
     v = cfg.vocab_size
     i32, f32 = torch.int32, torch.float32

@@ -31,6 +31,8 @@ from repro_torch.kernels import (
     paged_attention_arena_op,
     paged_verify_attention_arena_op,
 )
+from repro_torch.utils import dtensor_step
+from repro_torch.utils.shard_hint import shard_hint
 
 COMPUTE_DTYPE = torch.bfloat16
 ATTN_CHUNK = 1024  # KV chunk for the online-softmax path
@@ -128,9 +130,10 @@ def _einsum_bf16(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sums, the result rounded to bf16.  On the card that is cuBLAS's bf16
     product (f32 accumulation, reduced-precision reductions off); on the
     CPU it goes through the f32 product, whose sums are the XLA CPU
-    backend's, where PyTorch's CPU bf16 kernels sum in another order."""
+    backend's, where PyTorch's CPU bf16 kernels sum in another order.
+    Meta tensors (the dry-run's shapes) take the card's form."""
     a, b = a.to(COMPUTE_DTYPE), b.to(COMPUTE_DTYPE)
-    if a.is_cuda:
+    if a.device.type != "cpu":
         return torch.einsum(eq, a, b)
     return torch.einsum(eq, a.float(), b.float()).to(COMPUTE_DTYPE)
 
@@ -230,6 +233,81 @@ def multihead_attention(
     return out.reshape(b, sq, hq, dh)
 
 
+def dense_decode_attention(q, k, v, ck, cv, cache_pos, *, window: int,
+                           softcap: float, k_base: int = 0, combine=None):
+    """The decode step's attention over a dense cache: q, k, v (B, S, ·, D)
+    the S new tokens at positions cache_pos .. cache_pos+S-1, ck / cv
+    (B, Smax, Hkv, D) the cache read-only; returns (B, S, H, D).  The
+    cache's statistics are taken first and the new tokens merge in
+    closed form (``_merge_new_tokens``).  ``k_base`` is the position of
+    the cache's first row and ``combine`` reduces the statistics across
+    a cache split along its positions (both for a rank's slice of a
+    sharded cache, ``utils/dtensor_step.py``)."""
+    s = q.shape[1]
+    offs = torch.arange(s, dtype=torch.int32, device=q.device)
+    if cache_pos.dim() == 1:
+        q_pos = cache_pos[:, None] + offs[None, :]    # (B, S) per slot
+    else:
+        q_pos = cache_pos + offs                      # (S,)
+    k_pos = k_base + torch.arange(ck.shape[1], dtype=torch.int32,
+                                  device=q.device)
+    out_old, m_old, l_old = multihead_attention(
+        q, ck, cv, q_positions=q_pos, k_positions=k_pos, causal=True,
+        window=window, softcap=softcap, kv_valid=cache_pos,
+        return_stats=True,
+    )  # (b,h,g,S,dh), (b,h,g,S), (b,h,g,S)
+    if combine is not None:
+        out_old, m_old, l_old = combine(out_old, m_old, l_old)
+    return _merge_new_tokens(q, k, v, out_old, m_old, l_old, window=window,
+                             softcap=softcap)
+
+
+def _merge_new_tokens(q, k, v, out_old, m_old, l_old, *, window: int,
+                      softcap: float):
+    """The S new tokens' (k, v) merged into the cache's online-softmax
+    statistics (unnormalised output (b, h, g, S, dh), max and
+    denominator (b, h, g, S)); returns the attention output (B, S, H,
+    D).  S > 1 (the verify step) attends among the new tokens under an
+    intra-block causal mask."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    offs = torch.arange(s, dtype=torch.int32, device=q.device)
+    qg = q.reshape(b, s, hkv, g, hd)
+    scale = 1.0 / math.sqrt(hd)
+    if s == 1:
+        s_new = _einsum_bf16("bqhgd,bqhd->bhgq", qg, k).float()
+        s_new = _softcap(s_new * scale, softcap)
+        m_new = torch.maximum(m_old, s_new)
+        alpha = torch.exp(m_old - m_new)
+        p_new = torch.exp(s_new - m_new)
+        v_b = v.reshape(b, 1, hkv, 1, hd).permute(0, 2, 3, 1, 4)
+        num = (out_old.float() * alpha[..., None]
+               + p_new[..., None] * v_b.float())
+        den = l_old * alpha + p_new
+    else:
+        # Intra-block attention of the s new tokens over themselves:
+        # query row i sees new token j iff j <= i (positions are
+        # consecutive, so the sliding window reduces to j > i - w).
+        s_blk = _einsum_bf16("bqhgd,bjhd->bhgqj", qg, k).float()
+        s_blk = _softcap(s_blk * scale, softcap)
+        blk_ok = offs[None, :] <= offs[:, None]           # (Sq, Sj)
+        if window and window > 0:
+            blk_ok = blk_ok & (offs[None, :] > offs[:, None] - window)
+        s_blk = torch.where(blk_ok[None, None, None], s_blk,
+                            _mask_value())
+        m_new = torch.maximum(m_old, s_blk.amax(dim=-1))
+        alpha = torch.exp(m_old - m_new)
+        p_blk = torch.exp(s_blk - m_new[..., None])
+        # f32 x f32, as the JAX package's einsum of p_blk and v
+        pv = torch.einsum("bhgqj,bjhd->bhgqd", p_blk, v.float())
+        num = out_old.float() * alpha[..., None] + pv
+        den = l_old * alpha + p_blk.sum(dim=-1)
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    out = out.to(COMPUTE_DTYPE).movedim(3, 1)  # (b, S, h, g, dh)
+    return out.reshape(b, s, hkv * g, hd)
+
+
 @dataclass
 class PagedKV:
     """One attention layer's view of the paged decode arena: bf16 fp pools
@@ -280,8 +358,8 @@ def apply_attention(
 
     if xattn_kv is not None:
         k, v = xattn_kv
-        out = multihead_attention(
-            q, k, v,
+        out = dtensor_step.attend(
+            multihead_attention, q, k, v,
             q_positions=torch.arange(s, dtype=torch.int32, device=x.device),
             k_positions=torch.arange(k.shape[1], dtype=torch.int32,
                                      device=x.device),
@@ -299,7 +377,8 @@ def apply_attention(
 
     if cache is None:
         pos1 = torch.arange(s, dtype=torch.int32, device=x.device)
-        out = multihead_attention(q, k, v, q_positions=pos1, k_positions=pos1,
+        out = dtensor_step.attend(multihead_attention, q, k, v,
+                                  q_positions=pos1, k_positions=pos1,
                                   causal=causal, window=window, softcap=cap)
         new_cache = {"k": k, "v": v}
     else:
@@ -311,11 +390,6 @@ def apply_attention(
         # each other under an intra-block causal mask.
         hkv = k.shape[2]
         g = cfg.num_heads // cfg.kv_heads
-        offs = torch.arange(s, dtype=torch.int32, device=x.device)
-        if cache_pos.dim() == 1:
-            q_pos = cache_pos[:, None] + offs[None, :]    # (B, S) per slot
-        else:
-            q_pos = cache_pos + offs                      # (S,)
         if isinstance(cache, PagedKV):
             # the kernels cap the scores and apply a local layer's window
             # (each verify row's own bound) on the committed prefix
@@ -337,47 +411,12 @@ def apply_attention(
                     cache.k_scale, cache.v_codes, cache.v_scale,
                     cache.block_tables, slot_pos, cache.quant_lens,
                     window=window, softcap=cap)
+            out = _merge_new_tokens(q, k, v, out_old, m_old, l_old,
+                                    window=window, softcap=cap)
         else:
-            smax = cache["k"].shape[1]
-            k_pos = torch.arange(smax, dtype=torch.int32, device=x.device)
-            out_old, m_old, l_old = multihead_attention(
-                q, cache["k"], cache["v"], q_positions=q_pos,
-                k_positions=k_pos, causal=True, window=window, softcap=cap,
-                kv_valid=cache_pos, return_stats=True,
-            )  # (b,h,g,S,dh), (b,h,g,S), (b,h,g,S)
-        qg = q.reshape(b, s, hkv, g, hd)
-        scale = 1.0 / math.sqrt(hd)
-        if s == 1:
-            s_new = _einsum_bf16("bqhgd,bqhd->bhgq", qg, k).float()
-            s_new = _softcap(s_new * scale, cap)
-            m_new = torch.maximum(m_old, s_new)
-            alpha = torch.exp(m_old - m_new)
-            p_new = torch.exp(s_new - m_new)
-            v_b = v.reshape(b, 1, hkv, 1, hd).permute(0, 2, 3, 1, 4)
-            num = (out_old.float() * alpha[..., None]
-                   + p_new[..., None] * v_b.float())
-            den = l_old * alpha + p_new
-        else:
-            # Intra-block attention of the s new tokens over themselves:
-            # query row i sees new token j iff j <= i (positions are
-            # consecutive, so the sliding window reduces to j > i - w).
-            s_blk = _einsum_bf16("bqhgd,bjhd->bhgqj", qg, k).float()
-            s_blk = _softcap(s_blk * scale, cap)
-            blk_ok = offs[None, :] <= offs[:, None]           # (Sq, Sj)
-            if window and window > 0:
-                blk_ok = blk_ok & (offs[None, :] > offs[:, None] - window)
-            s_blk = torch.where(blk_ok[None, None, None], s_blk,
-                                _mask_value())
-            m_new = torch.maximum(m_old, s_blk.amax(dim=-1))
-            alpha = torch.exp(m_old - m_new)
-            p_blk = torch.exp(s_blk - m_new[..., None])
-            # f32 x f32, as the JAX package's einsum of p_blk and v
-            pv = torch.einsum("bhgqj,bjhd->bhgqd", p_blk, v.float())
-            num = out_old.float() * alpha[..., None] + pv
-            den = l_old * alpha + p_blk.sum(dim=-1)
-        out = num / torch.clamp(den, min=1e-30)[..., None]
-        out = out.to(COMPUTE_DTYPE).movedim(3, 1)  # (b, S, h, g, dh)
-        out = out.reshape(b, s, hkv * g, hd)
+            out = dtensor_step.decode_attend(
+                dense_decode_attention, q, k, v, cache["k"], cache["v"],
+                cache_pos, window=window, softcap=cap)
         new_cache = {"k_new": k, "v_new": v}
 
     y = _einsum_bf16("bshk,hkd->bsd", out, params["wo"])
@@ -504,9 +543,12 @@ def _apply_moe_einsum(params, cfg: ModelConfig, x: torch.Tensor):
     # ``jax.nn.one_hot`` of an index past ``cap`` is
     disp = keep[..., None] * F.one_hot(pos.long().clamp(max=cap - 1),
                                        cap).to(COMPUTE_DTYPE)  # (B,S,E,C)
+    disp = shard_hint(disp, ("pod", "data"), None, "model", None)
     xb = x.to(COMPUTE_DTYPE)
     buf = _einsum_bf16("bsec,bsd->becd", disp, xb)           # (B, E, C, d)
+    buf = shard_hint(buf, ("pod", "data"), "model", None, None)
     yb = _experts(params, buf, "becd")
+    yb = shard_hint(yb, ("pod", "data"), "model", None, None)
     combine = (disp.float() * gates_e[..., None]).to(COMPUTE_DTYPE)
     y = _einsum_bf16("becd,bsec->bsd", yb, combine)
     if "shared" in params:
@@ -536,7 +578,10 @@ def _apply_moe_sort(params, cfg: ModelConfig, x: torch.Tensor):
     gathered = xt[token_of].to(COMPUTE_DTYPE) * keep[:, None]
     buf = torch.zeros((e * cap, d), dtype=COMPUTE_DTYPE, device=x.device)
     buf = buf.index_add(0, slot, gathered)
-    yb = _experts(params, buf.reshape(e, cap, d), "ecd")
+    # Expert parallelism: pin the dispatch buffer and the expert compute to
+    # the model axis (a no-op off a mesh).
+    buf = shard_hint(buf.reshape(e, cap, d), "model", None, None)
+    yb = shard_hint(_experts(params, buf, "ecd"), "model", None, None)
 
     y_flat = yb.reshape(e * cap, d)[slot] * keep[:, None]    # (T*k, d)
     w_sorted = top_w.reshape(-1)[sort_idx]
@@ -561,7 +606,7 @@ def _apply_moe_sort(params, cfg: ModelConfig, x: torch.Tensor):
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens.long()]
+    return dtensor_step.embed(params["tok"], tokens)
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

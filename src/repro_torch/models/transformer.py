@@ -23,6 +23,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.utils import dtensor_step
+from repro_torch.utils.dtensor_step import pin_batch
 
 COMPUTE_DTYPE = L.COMPUTE_DTYPE
 _ENC_SPEC = LayerSpec(kind="attn", moe=False, local=False)
@@ -57,26 +59,36 @@ def plan_stack(cfg: ModelConfig) -> StackPlan:
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
-# A leaf spec is (shape, init, n): init is a normal's scale, "ones",
-# "zeros" or a numpy constant; n stacks the leaf on a leading block axis.
+# A leaf spec is (shape, axes, init, n): axes names each dimension's
+# logical axis (``distribution/sharding.py`` maps them to mesh axes, as the
+# JAX package's ``Pm`` leaves carry them); init is a normal's scale, "ones",
+# "zeros" or a numpy constant; n stacks the leaf on a leading "layers" axis.
 def _mlp_specs(d: int, d_ff: int) -> Dict[str, Any]:
-    return {"wi_gate": ((d, d_ff), 1.0 / math.sqrt(d), None),
-            "wi_up": ((d, d_ff), 1.0 / math.sqrt(d), None),
-            "wo": ((d_ff, d), 1.0 / math.sqrt(d_ff), None)}
+    return {"wi_gate": ((d, d_ff), ("embed", "mlp"), 1.0 / math.sqrt(d), None),
+            "wi_up": ((d, d_ff), ("embed", "mlp"), 1.0 / math.sqrt(d), None),
+            "wo": ((d_ff, d), ("mlp", "embed"), 1.0 / math.sqrt(d_ff), None)}
+
+
+def _norm_spec(d: int):
+    return ((d,), (None,), "ones", None)
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, hd, h, kv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, \
         cfg.kv_heads
     out = {
-        "wq": ((d, h, hd), 1.0 / math.sqrt(d), None),
-        "wk": ((d, kv, hd), 1.0 / math.sqrt(d), None),
-        "wv": ((d, kv, hd), 1.0 / math.sqrt(d), None),
-        "wo": ((h, hd, d), 1.0 / math.sqrt(h * hd), None),
+        "wq": ((d, h, hd), ("embed", "heads", "head_dim"),
+               1.0 / math.sqrt(d), None),
+        "wk": ((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+               1.0 / math.sqrt(d), None),
+        "wv": ((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+               1.0 / math.sqrt(d), None),
+        "wo": ((h, hd, d), ("heads", "head_dim", "embed"),
+               1.0 / math.sqrt(h * hd), None),
     }
     if cfg.qk_norm:
-        out["q_norm"] = ((hd,), "ones", None)
-        out["k_norm"] = ((hd,), "ones", None)
+        out["q_norm"] = _norm_spec(hd)
+        out["k_norm"] = _norm_spec(hd)
     return out
 
 
@@ -87,16 +99,16 @@ def _mamba_specs(cfg: ModelConfig) -> Dict[str, Any]:
     a_init = np.log(np.broadcast_to(np.arange(1, n + 1, dtype=np.float32),
                                     (di, n)))
     return {
-        "in_proj": ((d, 2 * di), 1.0 / math.sqrt(d), None),
-        "conv_w": ((di, kc), 0.5, None),
-        "conv_b": ((di,), "zeros", None),
-        "x_proj": ((di, r + 2 * n), 1.0 / math.sqrt(di), None),
-        "dt_proj_w": ((r, di), 1.0 / math.sqrt(r), None),
-        "dt_proj_b": ((di,), np.log(np.expm1(
+        "in_proj": ((d, 2 * di), ("embed", "mlp"), 1.0 / math.sqrt(d), None),
+        "conv_w": ((di, kc), ("mlp", None), 0.5, None),
+        "conv_b": ((di,), ("mlp",), "zeros", None),
+        "x_proj": ((di, r + 2 * n), ("mlp", None), 1.0 / math.sqrt(di), None),
+        "dt_proj_w": ((r, di), (None, "mlp"), 1.0 / math.sqrt(r), None),
+        "dt_proj_b": ((di,), ("mlp",), np.log(np.expm1(
             np.full((di,), 0.01, dtype=np.float32))), None),
-        "a_log": ((di, n), a_init, None),
-        "d_skip": ((di,), "ones", None),
-        "out_proj": ((di, d), 1.0 / math.sqrt(di), None),
+        "a_log": ((di, n), ("mlp", "state"), a_init, None),
+        "d_skip": ((di,), ("mlp",), "ones", None),
+        "out_proj": ((di, d), ("mlp", "embed"), 1.0 / math.sqrt(di), None),
     }
 
 
@@ -104,21 +116,25 @@ def _layer_specs(cfg: ModelConfig, spec: LayerSpec,
                  cross: bool = False) -> Dict[str, Any]:
     """One layer's leaf specs, sublayer by sublayer (``_init_layer``)."""
     d, f = cfg.d_model, cfg.d_ff
-    out: Dict[str, Any] = {"ln1": {"scale": ((d,), "ones", None)}}
+    out: Dict[str, Any] = {"ln1": {"scale": _norm_spec(d)}}
     out["mixer"] = (_attn_specs(cfg) if spec.kind == "attn"
                     else _mamba_specs(cfg))
     if cross:
-        out["lnx"] = {"scale": ((d,), "ones", None)}
+        out["lnx"] = {"scale": _norm_spec(d)}
         out["xattn"] = _attn_specs(cfg)
     if f > 0:
-        out["ln2"] = {"scale": ((d,), "ones", None)}
+        out["ln2"] = {"scale": _norm_spec(d)}
         if spec.moe:
             e = cfg.num_experts
             out["mlp"] = {
-                "router": ((d, e), 1.0 / math.sqrt(d), None),
-                "wi_gate": ((e, d, f), 1.0 / math.sqrt(d), None),
-                "wi_up": ((e, d, f), 1.0 / math.sqrt(d), None),
-                "wo": ((e, f, d), 1.0 / math.sqrt(f), None),
+                "router": ((d, e), ("embed", "experts"), 1.0 / math.sqrt(d),
+                           None),
+                "wi_gate": ((e, d, f), ("experts", "embed", "expert_mlp"),
+                            1.0 / math.sqrt(d), None),
+                "wi_up": ((e, d, f), ("experts", "embed", "expert_mlp"),
+                          1.0 / math.sqrt(d), None),
+                "wo": ((e, f, d), ("experts", "expert_mlp", "embed"),
+                       1.0 / math.sqrt(f), None),
             }
             if cfg.num_shared_experts > 0:
                 out["mlp"]["shared"] = _mlp_specs(
@@ -131,20 +147,21 @@ def _layer_specs(cfg: ModelConfig, spec: LayerSpec,
 def _stacked(tree, n: int):
     if isinstance(tree, dict):
         return {k: _stacked(v, n) for k, v in tree.items()}
-    shape, init, _ = tree
-    return (shape, init, n)
+    shape, axes, init, _ = tree
+    return (shape, axes, init, n)
 
 
 def _param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     plan = plan_stack(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     cross = cfg.encoder_decoder
-    embed = {"tok": ((v, d), 1.0, None)}
+    embed = {"tok": ((v, d), ("vocab", "embed"), 1.0, None)}
     if not cfg.tie_embeddings:
-        embed["unembed"] = ((d, v), 1.0 / math.sqrt(d), None)
+        embed["unembed"] = ((d, v), ("embed", "vocab"), 1.0 / math.sqrt(d),
+                            None)
     tree = {
         "embed": embed,
-        "final_norm": {"scale": ((d,), "ones", None)},
+        "final_norm": {"scale": _norm_spec(d)},
         "prefix": {f"layer{i}": _layer_specs(cfg, spec, cross)
                    for i, spec in enumerate(plan.prefix_specs)},
         "blocks": ({f"layer{j}": _stacked(_layer_specs(cfg, spec, cross),
@@ -156,7 +173,7 @@ def _param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         tree["encoder"] = {
             "blocks": {"layer0": _stacked(_layer_specs(cfg, _ENC_SPEC),
                                           cfg.enc_layers)},
-            "final_norm": {"scale": ((d,), "ones", None)},
+            "final_norm": {"scale": _norm_spec(d)},
         }
     return tree
 
@@ -169,7 +186,7 @@ def _map_specs(fn, tree):
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree's leaf shapes (stacked blocks included)."""
-    return _map_specs(lambda shape, init, n: ((n,) if n else ()) + shape,
+    return _map_specs(lambda shape, axes, init, n: ((n,) if n else ()) + shape,
                       _param_specs(cfg))
 
 
@@ -180,9 +197,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     mamba mixer's constants).  The numbers differ from the JAX package's
     init; stacked leaves are drawn block by block, so a full-width model
     never holds more than one f32 block of one leaf in flight.
-    ``dtype=torch.bfloat16`` is the serving-only form."""
+    ``dtype=torch.bfloat16`` is the serving-only form; ``device="meta"``
+    gives the shapes only (the dry-run's parameters)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
 
     def draw(shape, init):
         if isinstance(init, str):
@@ -194,7 +213,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         return (torch.randn(shape, generator=gen, device=device)
                 * init).to(dtype)
 
-    def leaf(shape, init, n):
+    def leaf(shape, axes, init, n):
+        if device.type == "meta":
+            return torch.empty(((n,) if n else ()) + shape, dtype=dtype,
+                                device=device)
         if n is None:
             return draw(shape, init)
         out = torch.empty((n,) + shape, dtype=dtype, device=device)
@@ -227,27 +249,27 @@ def _apply_layer(lp, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
     load-balancing loss (None for a dense MLP).  ``xattn_kv`` (xk, xv)
     adds the decoder's cross-attention sublayer; ``causal`` False is the
     encoder's self-attention."""
-    h = L.rmsnorm(lp["ln1"], x, cfg.rmsnorm_eps)
+    h = pin_batch(L.rmsnorm(lp["ln1"], x, cfg.rmsnorm_eps))
     if spec.kind == "attn":
         y, kv = L.apply_attention(lp["mixer"], cfg, h, positions=positions,
                                   local=spec.local, causal=causal,
                                   cache=cache, cache_pos=cache_pos)
     else:
         y, kv = S.apply_mamba(lp["mixer"], cfg, h, state=cache)
-    x = x + y
+    x = x + pin_batch(y)
     if xattn_kv is not None:
-        hx = L.rmsnorm(lp["lnx"], x, cfg.rmsnorm_eps)
+        hx = pin_batch(L.rmsnorm(lp["lnx"], x, cfg.rmsnorm_eps))
         yx, _ = L.apply_attention(lp["xattn"], cfg, hx, positions=positions,
                                   xattn_kv=xattn_kv)
-        x = x + yx
+        x = x + pin_batch(yx)
     aux = None
     if cfg.d_ff > 0:
-        h2 = L.rmsnorm(lp["ln2"], x, cfg.rmsnorm_eps)
+        h2 = pin_batch(L.rmsnorm(lp["ln2"], x, cfg.rmsnorm_eps))
         if spec.moe:
             y2, aux = L.apply_moe(lp["mlp"], cfg, h2)
         else:
             y2 = L.apply_mlp(lp["mlp"], h2)
-        x = x + y2
+        x = x + pin_batch(y2)
     return x, kv, aux
 
 
@@ -326,7 +348,8 @@ def _positions_for(cfg: ModelConfig, batch, seq: int, bsz: int, device):
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return L.embed_tokens(params["embed"], tokens).to(COMPUTE_DTYPE)
+    return pin_batch(L.embed_tokens(params["embed"], tokens)
+                     .to(COMPUTE_DTYPE))
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -405,15 +428,17 @@ def forward(cfg: ModelConfig, params, batch, remat: bool = False):
     positions = _positions_for(cfg, batch, seq, bsz, x.device)
     x, aux = _run_stack(params, cfg, plan, x, positions=positions,
                         xattn_kv=xattn_kv, remat=remat)
-    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    x = pin_batch(L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps))
     return L.unembed(params["embed"], cfg, x), aux
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int):
+def prefill(cfg: ModelConfig, params, batch, max_len: int, caches=None):
     """Prompt processing (``forward``'s inputs).  Returns (last-token
     logits (B, 1, V) f32, caches): attention K/V padded to ``max_len``,
     each mamba layer's state after the prompt, and for whisper
-    ``{"self": caches, "cross": cross-attention K/V}``."""
+    ``{"self": caches, "cross": cross-attention K/V}``.  ``caches`` are
+    zeroed buffers to fill, ``init_cache``'s tree (the dry-run passes
+    them placed as DTensors); None allocates them."""
     plan = plan_stack(cfg)
     xattn_kv = None
     if cfg.encoder_decoder:
@@ -424,7 +449,8 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
         x = _embed_inputs(params, cfg, batch)
     bsz, seq = x.shape[0], x.shape[1]
     positions = _positions_for(cfg, batch, seq, bsz, x.device)
-    caches = init_cache(cfg, bsz, max(max_len, seq), device=x.device)
+    if caches is None:
+        caches = init_cache(cfg, bsz, max(max_len, seq), device=x.device)
     if cfg.encoder_decoder:
         caches = caches["self"]
 
@@ -432,14 +458,11 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
         c = caches[part][name]
         for key, val in kv.items():
             buf = c[key] if blk is None else c[key][blk]
-            if key in ("k", "v"):
-                buf[:, :seq] = val.to(COMPUTE_DTYPE)
-            else:
-                buf.copy_(val)
+            dtensor_step.fill(_fill, buf, val)
 
     x, _ = _run_stack(params, cfg, plan, x, positions=positions,
                       xattn_kv=xattn_kv, on_kv=store)
-    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    x = pin_batch(L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps))
     logits = L.unembed(params["embed"], cfg, x[:, -1:, :])
     if cfg.encoder_decoder:
         caches = {"self": caches, "cross": xattn_kv}
@@ -489,7 +512,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
     for sub in new["blocks"].values():
         for key in sub:
             sub[key] = torch.stack(sub[key])
-    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    x = pin_batch(L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps))
     logits = L.unembed(params["embed"], cfg, x)
     if _is_paged(self_caches):
         return logits, new
@@ -497,6 +520,14 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
     if cfg.encoder_decoder:
         return logits, {"self": self_caches, "cross": xattn_kv}
     return logits, self_caches
+
+
+def _fill(buf, val) -> None:
+    """A prompt's K/V (B, S, H, D) into a cache buffer's first S rows, or
+    a mamba state whole."""
+    if val.shape[1] != buf.shape[1]:
+        buf = buf[:, :val.shape[1]]
+    buf.copy_(val.to(buf.dtype))
 
 
 def _is_paged(caches) -> bool:
@@ -523,22 +554,26 @@ def _merge_decode_updates(new_caches, caches, cache_pos):
                 upd = c[nk].to(buf.dtype)                # (·, B, S, H, D)
                 s, smax = upd.shape[-3], buf.shape[-3]
                 start = cache_pos.long().clamp(min=0, max=smax - s)
-                if cache_pos.dim() == 0:
-                    p = start + torch.arange(s, device=cache_pos.device)
-                    if stacked:
-                        buf[:, :, p] = upd
-                    else:
-                        buf[:, p] = upd
-                    continue
-                rows = torch.arange(cache_pos.shape[0],
-                                    device=cache_pos.device)
-                p = (start[:, None]
-                     + torch.arange(s, device=cache_pos.device)[None, :])
-                if stacked:
-                    buf[:, rows[:, None], p] = upd
-                else:
-                    buf[rows[:, None], p] = upd
+                dtensor_step.write_rows(_write_rows, buf, upd, start, stacked)
     return caches
+
+
+def _write_rows(buf, upd, start, stacked: bool) -> None:
+    """``upd``'s S rows into ``buf`` from ``start``: a scalar writes every
+    slot's rows there, a (B,) one each slot's at its own."""
+    s = upd.shape[-3]
+    p = start[..., None] + torch.arange(s, device=start.device)
+    if start.dim() == 0:
+        if stacked:
+            buf[:, :, p] = upd
+        else:
+            buf[:, p] = upd
+        return
+    rows = torch.arange(start.shape[0], device=start.device)
+    if stacked:
+        buf[:, rows[:, None], p] = upd
+    else:
+        buf[rows[:, None], p] = upd
 
 
 # ---------------------------------------------------------------------------

@@ -920,3 +920,51 @@ def test_train_step_with_compression_launches_the_kernels(cuda, tmp_path):
         for (path, a), (_, b) in zip(flatten(state), flatten(back)):
             assert b.device.type == dev.type, path
             assert torch.equal(a.cpu(), b.cpu()), path
+
+
+_RESTORE_ON_CUDA_MESH = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.distribution.sharding import tree_shardings
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import init_params
+from repro_torch.models.axes import param_axes
+from repro_torch.models.convert import flatten
+
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + sys.argv[2],
+                        rank=0, world_size=1)
+cfg = get_config("tiny-lm")
+params = init_params(cfg, seed=1, device="cuda")
+mgr = CheckpointManager(sys.argv[1])
+mgr.save(1, params)
+mesh = make_test_mesh(data=1, model=1, device_type="cuda")
+shardings = tree_shardings(param_axes(cfg), params, mesh)
+back = mgr.restore(init_params(cfg, device="meta"), shardings=shardings)
+for (path, a), (_, b) in zip(flatten(params), flatten(back)):
+    assert isinstance(b, DTensor) and b.device.type == "cuda", path
+    assert torch.equal(a, b.to_local()), path
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+def test_restore_with_shardings_onto_a_cuda_mesh(cuda, tmp_path):
+    """``CheckpointManager.restore(..., shardings=)`` lands every leaf as a
+    DTensor on a one-rank NCCL mesh on the card, bit-equal to the saved
+    tensors (its own process: the group is the process's default)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).parent.parent
+                                          / "src"))
+    r = subprocess.run([sys.executable, "-c", _RESTORE_ON_CUDA_MESH,
+                        str(tmp_path / "ckpt"), str(tmp_path / "init")],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stderr[-3000:]
