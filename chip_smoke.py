@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-Nine phases, in order; any failure exits non-zero and no phase's error
+Ten phases, in order; any failure exits non-zero and no phase's error
 is caught:
 
 1. Build: compile every Hopper kernel of ``src/repro_torch/kernels/csrc``
@@ -137,12 +137,18 @@ is caught:
 
 9. The multi-card path: (a) ``python -m repro_torch.launch.dryrun`` in
    processes of their own (the fake 512-rank group), started after (b)
-   and running beside (c): llama3.1-8b's train_4k, prefill_32k and
-   decode_32k and tiny-lm's train_4k and decode_32k on the 16x16 and
-   2x16x16 meshes,
-   every cell ``[ok]`` with its H100 terms, dominant term, useful ratio
-   (in (0, 1]) and memory a device printed, and llama3.1-8b's decode_32k
-   on 16x16 moving collective bytes; (b) llama3.1-8b at full width and
+   and running beside (c) and phase 10: llama3.1-8b's train_4k,
+   prefill_32k and decode_32k, tiny-lm's train_4k and decode_32k,
+   falcon-mamba-7b's train_4k and decode_32k, jamba-v0.1-52b's train_4k
+   and deepseek-moe-16b's train_4k and prefill_32k on the 16x16 and
+   2x16x16 meshes, every cell ``[ok]`` with its H100 terms, dominant
+   term, useful ratio (in (0, 1], for the attention-free falcon-mamba up
+   to N / (N - its embedding tables)) and memory a device printed, and
+   llama3.1-8b's decode_32k on 16x16 moving collective bytes; and with
+   ``--include-transfer`` llama3.1-8b's decode_32k on 2x16x16 with its
+   compressed cross-pod KV migration (4-bit), whose collective bytes, all
+   over "pod", equal its quantized cache shards' ``transfer_wire_bytes``;
+   (b) llama3.1-8b at full width and
    depth in bf16, a decode step at B 8 over a 4,096-position dense cache
    and a prefill of B 1 x 4,096, and phase 7b's 4-layer train step, each
    timed on the card (CUDA events) beside the report of the same step on
@@ -152,14 +158,23 @@ is caught:
    on a 1x1 ("data", "model") mesh by the port's sharding rules, bit-equal
    to the saved arrays, its eval loss equal to phase 7a's bit for bit.
 
+10. The six ``examples/torch_*.py`` scripts in this process on the card
+   at their JAX counterparts' sizes (offline profiling at
+   ``OFFLINE_ITERS`` BO iterations), the three that serve or profile the
+   reference model on phase 7a's trained tiny-lm, train_small with its
+   8-bit gradient compression on: each prints its table, its seconds and
+   its kernel launches; torch_quickstart must launch hadamard, and
+   torch_train_small quant_pack and dequant_unpack.
+
 Prints per-request TTFT/JCT/wire bytes/breakdowns, the speculative run's
 verify steps, committed tokens and accept rates beside the plain run's
 TTFT and JCT, phase 5's profiles and per-batch breakdowns, phase 6's
 per-request route, tier, TTFT, JCT and breakdown, its stores' tiers and
 the simulator's gap, phase 7's training and transfer numbers, phase 8's
 serving run and per-family checks, phase 9's report rows beside the
-card's times and the restore, one JSON line of kernel results (with
-each kernel's launches in phases 6, 7, 8a and 8c),
+card's times and the restore, phase 10's tables, seconds and launches,
+one JSON line of kernel results (with each kernel's launches in phases
+6, 7, 8a, 8c and 10),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Exits
 with an error, printing no result, when there is no CUDA device or the
@@ -3587,10 +3602,19 @@ def families_phase(torch, dev):
 # ---------------------------------------------------------------------------
 # Phase 9: the multi-card path (the H100 cost report, elastic restore)
 # ---------------------------------------------------------------------------
-# 9a: the dry-run's cells, (arch, shapes); the fake 512-rank group needs
-# a process of its own, as the JAX package's dry-run does
-DRYRUNS = (("llama3.1-8b", "train_4k,prefill_32k,decode_32k"),
-           ("tiny-lm", "train_4k,decode_32k"))
+# 9a: the dry-run's cells, (arch, shapes, meshes, extra options); the fake
+# 512-rank group needs a process of its own, as the JAX package's dry-run
+# does.  The mamba stacks' scan counts one step times its trip count, the
+# MoE einsum form's dispatch and combine are each rank's own product, and
+# llama3.1-8b's decode_32k on 2x16x16 also counts the compressed
+# cross-pod KV migration (4-bit, group 64)
+DRYRUNS = (("llama3.1-8b", "train_4k,prefill_32k,decode_32k", "both", ()),
+           ("tiny-lm", "train_4k,decode_32k", "both", ()),
+           ("falcon-mamba-7b", "train_4k,decode_32k", "both", ()),
+           ("jamba-v0.1-52b", "train_4k", "both", ()),
+           ("deepseek-moe-16b", "train_4k,prefill_32k", "both", ()),
+           ("llama3.1-8b", "decode_32k", "multi", ("--include-transfer",)))
+MESHES = {"both": ("16x16", "2x16x16"), "multi": ("2x16x16",)}
 # 9b: steps the card runs for real beside the report's terms
 DECODE_B, DECODE_LEN, PREFILL_B, PREFILL_LEN = 8, 4096, 1, 4096
 REPORT_CALLS = 10             # a run of calls between CUDA events
@@ -3598,38 +3622,88 @@ REPORT_CALLS = 10             # a run of calls between CUDA events
 
 def start_dryruns():
     """Phase 9a's dry-runs, started on the host's cores once 9b's
-    host-bound steps are timed; 9c runs beside them."""
+    host-bound steps are timed; 9c and phase 10 run beside them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = {}
-    for arch, shapes in DRYRUNS:
-        path = ROOT / "build" / f"dryrun_{arch}.jsonl"
+    for arch, shapes, meshes, extra in DRYRUNS:
+        label = arch + "".join(extra)
+        path = ROOT / "build" / f"dryrun_{label}.jsonl"
         path.parent.mkdir(parents=True, exist_ok=True)
         # its output goes to a file, which no pipe buffer can stall
         log = path.with_suffix(".log")
         with open(log, "w") as f:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shapes, "--mesh", "both", "--out",
-                 str(path)],
+                 arch, "--shape", shapes, "--mesh", meshes, "--out",
+                 str(path), *extra],
                 cwd=str(ROOT), env=env, stdout=f, stderr=subprocess.STDOUT)
-        out[arch] = (proc, path, log, shapes.split(","))
+        out[label] = (proc, path, log, arch, shapes.split(","),
+                      MESHES[meshes])
     return out
 
 
+def useful_ceiling(arch: str) -> float:
+    """The useful ratio's ceiling: 1, except in an attention-free stack,
+    where ``model_flops`` (2 FLOPs a token for every parameter) charges
+    the embedding tables, whose lookup does no arithmetic, and the step
+    does little besides its products (falcon-mamba's decode: 1.03):
+    N / (N - the tables' parameters)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if not (cfg.ssm and cfg.attn_period == 0):
+        return 1.0
+    n = cfg.param_count()
+    tables = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return n / (n - tables)
+
+
+def transfer_shard_bytes(arch: str, shape_name: str, bits: int = 4) -> int:
+    """The bytes one device sends in the cross-pod KV migration of a
+    decode cell's caches on 2x16x16: ``transfer_wire_bytes`` of each of
+    its cache shards (the shapes ``cache_pspecs`` gives), summed."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.distribution.kv_transfer import transfer_wire_bytes
+    from repro_torch.distribution.sharding import cache_pspecs
+    from repro_torch.models import init_cache
+    from repro_torch.models.convert import leaves
+
+    class Mesh:          # what the rules read of the production mesh
+        mesh_dim_names, shape = ("pod", "data", "model"), (2, 16, 16)
+
+    import torch
+    cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
+    caches = init_cache(cfg, shape.global_batch, shape.seq_len,
+                        device="meta")
+    sizes = dict(zip(Mesh.mesh_dim_names, Mesh.shape))
+    total = 0
+    for leaf, spec in zip(leaves(caches),
+                          leaves(cache_pspecs(caches, Mesh()))):
+        local = [d // math.prod(sizes[a] for a in (
+            () if e is None else (e,) if isinstance(e, str) else e))
+            for d, e in zip(leaf.shape, spec)]
+        total += transfer_wire_bytes(
+            {"x": torch.empty(local, dtype=leaf.dtype, device="meta")},
+            bits)
+    return total
+
+
 def dryrun_phase(dryruns) -> None:
-    """Phase 9a: every cell ``[ok]`` on both production meshes, its terms
-    printed, ``0 < useful_ratio <= 1``; llama3.1-8b's decode_32k on 16x16
-    shows collective bytes (its KV cache is sequence-sharded: 8 KV heads
-    on a 16-way model axis)."""
-    for arch, (proc, path, log, shapes) in dryruns.items():
+    """Phase 9a: every cell ``[ok]`` on its production meshes, its terms
+    printed, ``0 < useful_ratio <= useful_ceiling``; llama3.1-8b's
+    decode_32k on 16x16 shows collective bytes (its KV cache is
+    sequence-sharded: 8 KV heads on a 16-way model axis); its migration
+    on 2x16x16 moves, all over "pod", the bytes of its quantized cache
+    shards."""
+    for label, (proc, path, log, arch, shapes, meshes) in dryruns.items():
         proc.wait(timeout=600)
         check(proc.returncode == 0,
-              f"dry-run of {arch} exit {proc.returncode}:\n"
+              f"dry-run of {label} exit {proc.returncode}:\n"
               f"{log.read_text()[-6000:]}")
         rows = [json.loads(line) for line in path.read_text().splitlines()]
         ok = {(r["shape"], r["mesh"]) for r in rows if r["status"] == "ok"}
-        check(ok == {(s, m) for s in shapes for m in ("16x16", "2x16x16")},
-              f"dry-run of {arch}: every cell [ok]")
+        check(ok == {(s, m) for s in shapes for m in meshes},
+              f"dry-run of {label}: every cell [ok]")
+        ceiling = useful_ceiling(arch)
         for r in rows:
             print(f"phase 9a {arch} x {r['shape']} x {r['mesh']}: dominant "
                   f"{r['dominant']}, t_compute {r['t_compute']:.4e} s, "
@@ -3640,12 +3714,113 @@ def dryrun_phase(dryruns) -> None:
                   f"{r['useful_ratio']:.4f}; {r['mem_per_device'] / 1e9:.3f} "
                   f"GB a device (fits {r['fits_hbm']}); traced in "
                   f"{r['trace_seconds']:.1f} s")
-            check(0 < r["useful_ratio"] <= 1,
-                  f"{arch} {r['shape']} {r['mesh']}: 0 < useful_ratio <= 1")
+            check(0 < r["useful_ratio"] <= ceiling,
+                  f"{arch} {r['shape']} {r['mesh']}: 0 < useful_ratio <= "
+                  f"{ceiling:.4f}")
             if (arch, r["shape"], r["mesh"]) == ("llama3.1-8b", "decode_32k",
                                                  "16x16"):
                 check(r["coll_bytes"] > 0, "llama3.1-8b decode_32k on 16x16 "
                       "moves collective bytes (sequence-sharded KV)")
+            if "transfer" in r:
+                x = r["transfer"]
+                want = transfer_shard_bytes(arch, r["shape"])
+                print(f"phase 9a {arch} x {x['shape']} x {x['mesh']}: "
+                      f"collectives {x['coll_bytes']:.4e} B by axis "
+                      f"{x['coll_by_axis']} (the quantized shards: {want} "
+                      f"B), t_collective {x['t_collective']:.4e} s, "
+                      f"t_memory {x['t_memory']:.4e} s")
+                check(x["coll_by_axis"] == {"pod": want}
+                      and x["coll_bytes"] == want,
+                      f"{label}: the migration moves the quantized shards' "
+                      f"bytes over pod")
+        if "--include-transfer" in label:
+            check(any("transfer" in r for r in rows),
+                  f"{label}: a transfer report")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the six examples/torch_*.py scripts on the card
+# ---------------------------------------------------------------------------
+EXAMPLES = ("quickstart", "adaptive_bandwidth", "multi_tenant_serving",
+            "offline_profiling", "pd_serving_e2e", "train_small")
+EXAMPLES_ON_REF = ("multi_tenant_serving", "offline_profiling",
+                   "pd_serving_e2e")
+# the JAX scripts' sizes and options: offline_profiling's 30 BO
+# iterations (cut where the script's time requires), train_small with
+# its gradient compression on (``--grad-bits``, an option of the JAX
+# script too), whose quantizer runs as quant_pack and dequant_unpack
+OFFLINE_ITERS = 30
+EXAMPLE_ARGS = {"offline_profiling": ["--max-iters", str(OFFLINE_ITERS)],
+                "train_small": ["--grad-bits", "8"]}
+
+
+def examples_phase(torch, dev, keep_dir: Path):
+    """Phase 10: each ``examples/torch_*.py`` run in this process on the
+    card at its JAX counterpart's sizes, the three that serve or profile
+    the reference model on phase 7a's trained tiny-lm (restored from
+    ``keep_dir``); each prints its table, then its seconds and its
+    kernel launches.  torch_quickstart must launch hadamard, and
+    torch_train_small (8-bit gradient compression) quant_pack and
+    dequant_unpack.  Returns the launches summed over the six."""
+    import importlib.util
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_params
+
+    mgr = CheckpointManager(str(keep_dir))
+    cfg = get_config(mgr.metadata()["arch"])
+    params = mgr.restore({"params": init_params(cfg, device="meta")},
+                         device=dev)["params"]
+    total = {}
+    for name in EXAMPLES:
+        path = ROOT / "examples" / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = ["--device", str(dev)] + EXAMPLE_ARGS.get(name, [])
+        kw = {"ref": (cfg, params)} if name in EXAMPLES_ON_REF else {}
+        print(f"phase 10 {name}: python examples/torch_{name}.py "
+              f"{' '.join(argv)}")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main(argv, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        print(f"phase 10 {name}: {wall:.2f} s wall; launches {counts}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        if name == "quickstart":
+            # its 4-bit strategy is asymmetric (the JAX script's), so only
+            # the Hadamard stage has a kernel; quant_pack is symmetric
+            check(counts["hadamard_op"] > 0, "torch_quickstart launched "
+                  "hadamard")
+            check(all(r["cr"] > 1 and math.isfinite(r["mae"])
+                      for r in res["rows"]), "quickstart: CR and error")
+        elif name == "adaptive_bandwidth":
+            check(len(res) == 5 and all(math.isfinite(r.mean_jct())
+                                        for r in res.values()),
+                  "adaptive_bandwidth: five policies simulated")
+        elif name in ("multi_tenant_serving", "pd_serving_e2e"):
+            rt = res["runtime"]
+            check(len(rt.completed) == len(res["requests"]) ==
+                  {"multi_tenant_serving": 14, "pd_serving_e2e": 20}[name],
+                  f"{name}: every request served")
+            check(all(abs(sum(r.breakdown.values()) - r.jct) < 1e-9
+                      for r in rt.completed),
+                  f"{name}: breakdowns sum to JCT")
+        elif name == "offline_profiling":
+            check(res["profiles"] and res["frontier"] and res["policy"],
+                  "offline_profiling: profiles, frontier and policy")
+        else:
+            losses = res["losses"]
+            check(all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0], "train_small: the loss falls")
+            for k in ("quant_pack_op", "dequant_unpack_op"):
+                check(counts[k] > 0, f"torch_train_small launched {k}")
+    return total
 
 
 def report_vs_card(torch, dev) -> None:
@@ -3838,6 +4013,7 @@ def main(argv) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} on {name}")
 
@@ -4002,16 +4178,28 @@ def main(argv) -> int:
     t9 = time.perf_counter()
     report_vs_card(torch, dev)
     dryruns = start_dryruns()         # on the host's cores, beside 9c
-    try:
+    try:                              # and phase 10
         restore_phase(Path(keep.name), loss7a)
+        print(f"phase 9b-9c: {time.perf_counter() - t9:.2f} s wall")
+
+        # ---- 10. the six examples/torch_*.py scripts ----
+        t10 = time.perf_counter()
+        counts = examples_phase(torch, dev, Path(keep.name))
+        phase10 = {k: counts[op] for k, op in op_of.items()}
+        print(f"launches on the phase 10 path: {phase10}")
+        print(f"phase 10: {time.perf_counter() - t10:.2f} s wall (beside "
+              f"9a's dry-runs)")
         keep.cleanup()
+        t9a = time.perf_counter()
         dryrun_phase(dryruns)
+        print(f"phase 9a: {time.perf_counter() - t9a:.2f} s more wall "
+              f"after phase 10")
     finally:
         for proc, *_ in dryruns.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    print(f"phase 9: {time.perf_counter() - t9:.2f} s wall")
+    print(f"phases 9 and 10: {time.perf_counter() - t9:.2f} s wall")
 
     meta = {
         "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
@@ -4036,9 +4224,11 @@ def main(argv) -> int:
                  "replaces": replaces, "launches": launches[k],
                  "phase6_launches": phase6[k], "phase7_launches": phase7[k],
                  "phase8_launches": phase8[k],
-                 "phase8c_launches": phase8c[k]}
+                 "phase8c_launches": phase8c[k],
+                 "phase10_launches": phase10[k]}
         entry.update(results[k])
         kernels.append(entry)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -115,6 +115,12 @@ class DeviceKVCache(KVCache):
     """:class:`KVCache` whose ``k``/``v`` are (L, H, S, D) torch tensors —
     the KV a prefill left on the device, bf16 or f32."""
 
+    @classmethod
+    def from_host(cls, kv: KVCache, device) -> "DeviceKVCache":
+        """A host :class:`KVCache`'s arrays as tensors on ``device``."""
+        return cls(torch.from_numpy(np.ascontiguousarray(kv.k)).to(device),
+                   torch.from_numpy(np.ascontiguousarray(kv.v)).to(device))
+
     def nbytes_wire(self) -> int:
         return int(self.k.numel() + self.v.numel()) * SOURCE_BYTES
 

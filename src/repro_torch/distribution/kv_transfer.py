@@ -15,7 +15,9 @@ f32 scale rounded to f16.
 
 The payload's device follows the group's backend: gloo moves CPU tensors
 only, so its payload is staged through host memory; NCCL takes the
-device's tensors.
+device's tensors.  ``make_mesh_kv_transfer`` is the same migration
+written as one program over a mesh's "pod" axis with functional
+collectives, which the dry-run counts (``--include-transfer``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.kernels import dequant_unpack_op, quant_pack_op
@@ -39,7 +42,9 @@ def quantize_rows(x: torch.Tensor, bits: int, group: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (T, D) -> (codes, f16 scales (T, D/group)): what crosses the wire.
     Codes are int8 (T, D), or uint8 nibbles (T, D/2) when ``bits == 4``
-    and the group is even."""
+    and the group is even.  The kernel reads rows in place, so a strided
+    x (a tied embedding's gradient is its transpose's) is copied first."""
+    x = x.contiguous()
     if group % 2 and x.device.type == "cpu":
         # The kernels take even groups only (two int4 codes share a byte):
         # on the card quant_pack_op raises for an odd group.  Such a group
@@ -202,6 +207,38 @@ def make_kv_transfer(process_group=None, bits: int = 4, group: int = 64):
 
     fn.wire_bytes = 0
     return fn
+
+
+def make_mesh_kv_transfer(mesh: DeviceMesh, bits: int = 4, group: int = 64):
+    """The migration as one program over a mesh's "pod" axis, the JAX
+    package's ``make_kv_transfer`` (``shard_map`` + ``ppermute``): each
+    device quantizes its shard of every cache leaf under
+    :func:`_leaf_group`'s rule (the plain versions on tensors off the
+    card, the kernels on it), sends the codes and the f16 scales to the
+    device at its place in the next pod (``permute_tensor``, a functional
+    collective that ``launch/op_cost.py`` counts on the "pod" axis), and
+    dequantizes what it receives to the leaf's dtype.  Returns
+    ``fn(local_cache) -> local_cache`` over each device's shards.  The
+    dry-run counts it on the fake group; between real pods the
+    migration runs :func:`make_kv_transfer`'s ring hop."""
+    pg = mesh.get_group("pod")
+    n = dist.get_world_size(pg)
+    ahead = [(r + 1) % n for r in range(n)]
+
+    def hop(t: torch.Tensor) -> torch.Tensor:
+        out = funcol.permute_tensor(t.reshape(-1), ahead, pg)
+        out = out.wait() if hasattr(out, "wait") else out
+        return out.reshape(t.shape)
+
+    def land(x):
+        g = _leaf_group(x, bits, group)
+        if g == 0:
+            return hop(x)
+        codes, scale = quantize_rows(x.reshape(-1, x.shape[-1]), bits, g)
+        return dequantize_rows(hop(codes), hop(scale), bits, g,
+                               x.dtype).reshape(x.shape)
+
+    return lambda cache: tree_map(land, cache)
 
 
 def transfer_wire_bytes(cache_example, bits: int, group: int = 64) -> int:

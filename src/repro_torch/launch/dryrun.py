@@ -17,7 +17,10 @@ group.
 
 Each cell prints ``[ok] {arch} × {shape} × {mesh}: dominant=... tc= tm=
 tx= useful= ...`` or ``[FAIL] ... <reason>``; any failure makes the exit
-code 1.
+code 1.  ``--include-transfer`` also counts, on each multi-pod decode
+cell, the compressed cross-pod KV migration of the cell's caches (4-bit,
+group 64: ``kv_transfer.make_mesh_kv_transfer``), printed as a
+``+kvxfer`` line and kept in the row's ``transfer``.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from repro_torch.distribution.steps import (
     make_prefill_step,
     make_train_step,
 )
+from repro_torch.distribution.kv_transfer import make_mesh_kv_transfer
 from repro_torch.launch.mesh import init_fake_world, make_production_mesh
 from repro_torch.launch.op_cost import count_ops
 from repro_torch.launch.roofline import (
@@ -63,8 +67,10 @@ from repro_torch.launch.roofline import (
 )
 from repro_torch.models import init_cache, init_params, make_inputs_for_shape
 from repro_torch.models.axes import param_axes
+from repro_torch.models.convert import tree_map
 
 WORLD = 512
+TRANSFER_BITS = 4     # --include-transfer's quantizer (group 64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,14 +208,38 @@ def one_device_report(cfg, shape, name: str = "") -> RooflineReport:
                    mem_per_device=float(mem))
 
 
+def transfer_report(arch: str, shape_name: str, mesh) -> RooflineReport:
+    """The compressed cross-pod KV migration of a decode cell
+    (``kv_transfer.make_mesh_kv_transfer``, ``TRANSFER_BITS``) counted
+    per device, reported as ``<shape>+kvxfer<bits>`` with no useful
+    FLOPs.  The caches are placed on the multi-pod ``mesh`` itself, not
+    its flattening (the migration moves over "pod"), as the JAX dry-run
+    takes them: for an encoder-decoder the cross-attention KV of the
+    cell's ``seq_len`` frames beside a self cache of at most ``dec_seq``
+    positions."""
+    cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
+    b = shape.global_batch
+    caches = (init_cache(cfg, b, min(cfg.dec_seq, shape.seq_len),
+                         enc_len=shape.seq_len, device="meta")
+              if cfg.encoder_decoder
+              else init_cache(cfg, b, shape.seq_len, device="meta"))
+    local = tree_map(lambda t: t.to_local(),
+                     place(caches, cache_pspecs(caches, mesh), mesh, mesh))
+    _, cost = count_ops(make_mesh_kv_transfer(mesh, bits=TRANSFER_BITS),
+                        local, mesh=mesh)
+    return analyze(cost, arch=arch,
+                   shape=f"{shape_name}+kvxfer{TRANSFER_BITS}",
+                   mesh_name="x".join(map(str, mesh.shape)),
+                   chips=math.prod(mesh.shape), model_flops=0.0,
+                   mem_per_device=float(local_bytes(local)),
+                   link_bw=axis_link_bw(mesh))
+
+
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 include_transfer: bool = False) -> Dict:
-    """Count one (arch × shape × mesh) cell; returns its report."""
-    if include_transfer:
-        raise NotImplementedError(
-            "--include-transfer: the cross-pod KV migration runs on a "
-            "process group of real pods (distribution/kv_transfer.py); the "
-            "fake group carries no p2p ops to count")
+    """Count one (arch × shape × mesh) cell; returns its report, and on a
+    multi-pod decode cell with ``include_transfer`` the KV migration's
+    (``transfer_report``)."""
     cfg = get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
     mesh = _production_mesh(multi_pod)
@@ -225,8 +255,11 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool,
         mem_per_device=float(mem), link_bw=axis_link_bw(counted))
     report.note = (f"counted on {'x'.join(map(str, counted.shape))} "
                    f"({', '.join(counted.mesh_dim_names)})")
-    return {"report": report, "trace_seconds": time.time() - t0,
-            "n_ops": cost.n_ops}
+    result = {"report": report, "trace_seconds": time.time() - t0,
+              "n_ops": cost.n_ops}
+    if include_transfer and multi_pod and shape.kind == "decode":
+        result["transfer_report"] = transfer_report(arch, shape_name, mesh)
+    return result
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -271,9 +304,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                           f"useful={r.useful_ratio:.2f} "
                           f"mem={r.mem_per_device / 1e9:.2f}GB "
                           f"trace={res['trace_seconds']:.1f}s", flush=True)
-                    rows.append({"status": "ok", **json.loads(r.to_json()),
-                                 "trace_seconds": res["trace_seconds"],
-                                 "n_ops": res["n_ops"]})
+                    row = {"status": "ok", **json.loads(r.to_json()),
+                           "trace_seconds": res["trace_seconds"],
+                           "n_ops": res["n_ops"]}
+                    if "transfer_report" in res:
+                        x = res["transfer_report"]
+                        print(f"[ok]  {tag} +kvxfer: tx={x.t_collective:.3e}s "
+                              f"coll={x.coll_bytes / 1e9:.4f}GB "
+                              f"{dict(x.coll_breakdown)}", flush=True)
+                        row["transfer"] = json.loads(x.to_json())
+                    rows.append(row)
                 except Exception as e:
                     failures += 1
                     print(f"[FAIL] {tag}: {type(e).__name__}: "

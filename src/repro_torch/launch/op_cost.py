@@ -12,7 +12,8 @@ so DTensor's own dispatch runs with the mode still active and the mode
 counts what one device runs: the local op on its shard, and the
 ``_c10d_functional`` collectives that redistribution issues.  Counts are
 therefore per device.  The ops DTensor runs on fake tensors to propagate
-global shapes are skipped.
+global shapes are skipped.  An op dispatched under ``utils/scan.py``'s
+``trip_scale(n)`` (a recurrence's one counted step) counts n times.
 
   FLOPs   matmuls, convolutions and attention by ``torch.utils.flop_counter``'s
           formulas; every other op one FLOP per output element (pointwise)
@@ -38,6 +39,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.utils.scan import current_scale
 
 aten = torch.ops.aten
 
@@ -115,13 +118,16 @@ class OpCounter(TorchDispatchMode):
         return out
 
     def _count(self, func, args, kwargs, ins, outs, out) -> None:
+        k = current_scale()          # a scanned step's trip count
+        if k == 0:
+            return
         c = self.cost
-        c.n_ops += 1
+        c.n_ops += k
         ns = getattr(func, "namespace", "")
         name = func._schema.name.split("::")[-1]
         if ns == "_c10d_functional":
             if name in COLLECTIVES:
-                nb = _nbytes(ins[0]) if ins else 0
+                nb = k * (_nbytes(ins[0]) if ins else 0)
                 group = args[-1] if isinstance(args[-1], str) else ""
                 c.coll_bytes += nb
                 c.coll_breakdown[name] += nb
@@ -131,26 +137,31 @@ class OpCounter(TorchDispatchMode):
             return
         packet = func._overloadpacket
         if packet in flop_registry:
-            c.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            c.flops += k * flop_registry[packet](*args, **kwargs,
+                                                 out_val=out)
         elif torch.Tag.pointwise in func.tags:
-            c.flops += sum(t.numel() for t in outs)
+            c.flops += k * sum(t.numel() for t in outs)
         elif torch.Tag.reduction in func.tags or func in _SOFTMAX_LIKE:
-            c.flops += ins[0].numel() if ins else 0
-        if func in _SCATTER:
-            # the update region: indices and values read, values (the last
-            # tensor argument) written
-            rest = _tensors((args[1:], kwargs))
-            c.bytes += sum(_nbytes(t) for t in rest) + _nbytes(rest[-1])
-            return
-        if func is aten.copy_.default:   # the region written, the source read
-            c.bytes += _nbytes(args[0]) + _nbytes(args[1])
-            return
-        seen = set()
-        for t in ins + outs:     # an in-place op's output is its input
-            key = id(t)
-            if key not in seen or func._schema.is_mutable:
-                c.bytes += _nbytes(t)
-            seen.add(key)
+            c.flops += k * (ins[0].numel() if ins else 0)
+        c.bytes += k * _op_bytes(func, args, kwargs, ins, outs)
+
+
+def _op_bytes(func, args, kwargs, ins, outs) -> int:
+    """An op's bytes (the module docstring's rule)."""
+    if func in _SCATTER:
+        # the update region: indices and values read, values (the last
+        # tensor argument) written
+        rest = _tensors((args[1:], kwargs))
+        return sum(_nbytes(t) for t in rest) + _nbytes(rest[-1])
+    if func is aten.copy_.default:   # the region written, the source read
+        return _nbytes(args[0]) + _nbytes(args[1])
+    total, seen = 0, set()
+    for t in ins + outs:     # an in-place op's output is its input
+        key = id(t)
+        if key not in seen or func._schema.is_mutable:
+            total += _nbytes(t)
+        seen.add(key)
+    return total
 
 
 def mesh_group_axes(mesh) -> Dict[str, str]:

@@ -20,7 +20,6 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core import (
     IDENTITY_PROFILE,
@@ -40,12 +39,8 @@ from repro_torch.profiling.pareto import ParetoPoint, profile_latency
 
 def default_kv_samples(device="cuda") -> List[KVCache]:
     """The JAX package's two seeded random sample caches, on ``device``."""
-    out = []
-    for s in range(2):
-        kv = KVCache.random(4, 2, 192, 32, seed=s)
-        out.append(DeviceKVCache(torch.from_numpy(kv.k).to(device),
-                                 torch.from_numpy(kv.v).to(device)))
-    return out
+    return [DeviceKVCache.from_host(KVCache.random(4, 2, 192, 32, seed=s),
+                                    device) for s in range(2)]
 
 
 def build_profiles(

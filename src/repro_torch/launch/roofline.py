@@ -57,6 +57,7 @@ class RooflineReport:
     mem_per_device: Optional[float] = None  # bytes (params+opt+inputs+caches)
     fits_hbm: Optional[bool] = None
     note: str = ""
+    coll_by_axis: Optional[Dict[str, float]] = None   # per device, by mesh axis
 
     def terms(self) -> Dict[str, float]:
         return {"compute": self.t_compute, "memory": self.t_memory,
@@ -106,6 +107,7 @@ def analyze(cost, *, arch: str, shape: str, mesh_name: str, chips: int,
         mem_per_device=mem_per_device,
         fits_hbm=(None if mem_per_device is None
                   else mem_per_device <= HBM_PER_CHIP),
+        coll_by_axis=dict(cost.coll_by_axis),
     )
 
 

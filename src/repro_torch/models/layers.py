@@ -545,12 +545,14 @@ def _apply_moe_einsum(params, cfg: ModelConfig, x: torch.Tensor):
                                        cap).to(COMPUTE_DTYPE)  # (B,S,E,C)
     disp = shard_hint(disp, ("pod", "data"), None, "model", None)
     xb = x.to(COMPUTE_DTYPE)
-    buf = _einsum_bf16("bsec,bsd->becd", disp, xb)           # (B, E, C, d)
+    buf = dtensor_step.expert_einsum(_einsum_bf16, "bsec,bsd->becd", disp,
+                                     xb)                      # (B, E, C, d)
     buf = shard_hint(buf, ("pod", "data"), "model", None, None)
     yb = _experts(params, buf, "becd")
     yb = shard_hint(yb, ("pod", "data"), "model", None, None)
     combine = (disp.float() * gates_e[..., None]).to(COMPUTE_DTYPE)
-    y = _einsum_bf16("becd,bsec->bsd", yb, combine)
+    y = dtensor_step.expert_einsum(_einsum_bf16, "becd,bsec->bsd", yb,
+                                   combine)
     if "shared" in params:
         y = y + apply_mlp(params["shared"], xb).to(COMPUTE_DTYPE)
     return y.to(x.dtype), aux

@@ -5,9 +5,11 @@ the JAX package's ``models/ssm.py``.
   y_t = C_t · h_t + D ⊙ x_t
 
 with a depthwise causal conv front end and SiLU gating.  The selective
-scan is an f32 recurrence over positions, a loop here as ``lax.scan`` is
-there; the carried state {"ssm": (B, d_inner, n) f32, "conv": (B,
-d_inner, k-1) bf16} is the attention-free layers' cache.
+scan is an f32 recurrence over positions, ``utils/scan.py::scan`` here
+as ``lax.scan`` is there (a loop on real tensors, one counted step on
+the dry-run's shape-only tensors); the carried state {"ssm": (B,
+d_inner, n) f32, "conv": (B, d_inner, k-1) bf16} is the attention-free
+layers' cache.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, _einsum_bf16
+from repro_torch.utils import dtensor_step
+from repro_torch.utils.scan import scan
 
 
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -46,11 +50,23 @@ def _ssm_params(params, cfg: ModelConfig, x_conv: torch.Tensor):
     """Input-dependent (dt, B, C) from the conv output."""
     n, r = cfg.ssm_state, cfg.dt_rank
     proj = _einsum_bf16("bsd,dk->bsk", x_conv, params["x_proj"]).float()
+    # over a mesh the contraction over d_inner leaves a pending sum on the
+    # "model" axis: reduced here, once, not inside every position's step
+    proj = dtensor_step.model_axis_on(proj, None)
     dt_r, b_mat, c_mat = torch.split(proj, [r, n, n], dim=-1)
     pre = (torch.einsum("bsr,rd->bsd", dt_r, params["dt_proj_w"].float())
            + params["dt_proj_b"].float())
     dt = torch.logaddexp(pre, torch.zeros_like(pre))        # jax.nn.softplus
     return dt, b_mat, c_mat
+
+
+def _scan_step(h, x_t, a):
+    """One position of the selective scan: h (B, di, n) f32, the
+    position's x, dt (B, di) and B, C (B, n), A (di, n)."""
+    xt, dt_t, b_t, c_t = x_t
+    da = torch.exp(dt_t[..., None] * a)                     # (B, di, n)
+    h = h * da + (dt_t * xt)[..., None] * b_t[:, None, :]
+    return h, torch.einsum("bdn,bn->bd", h, c_t)
 
 
 def apply_mamba(params, cfg: ModelConfig, x: torch.Tensor,
@@ -74,13 +90,7 @@ def apply_mamba(params, cfg: ModelConfig, x: torch.Tensor,
          else torch.zeros((bsz, di, n), dtype=torch.float32,
                           device=x.device))
     xf = x_conv.float()
-    ys = []
-    for t in range(s):
-        dt_t = dt[:, t]
-        da = torch.exp(dt_t[..., None] * a)                 # (B, di, n)
-        h = h * da + (dt_t * xf[:, t])[..., None] * b_mat[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, c_mat[:, t]))
-    y = torch.stack(ys, dim=1)                              # (B, S, di)
+    h, y = scan(_scan_step, h, (xf, dt, b_mat, c_mat), (a,))  # y (B, S, di)
     y = y + xf * params["d_skip"].float()
     zf = z.float()
     y = y * (zf * torch.sigmoid(zf))

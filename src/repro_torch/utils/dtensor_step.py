@@ -6,7 +6,8 @@ The model code (``models/layers.py``, ``models/transformer.py``,
 a step over a mesh has to decide something, it calls a hook of this
 module: the residual stream's placement (``pin_batch``), attention
 (``attend``), the dense decode read (``decode_attend``), the prefill's
-and the decode step's cache writes (``fill``, ``write_rows``), the token
+and the decode step's cache writes (``fill``, ``write_rows``), the MoE
+einsum form's dispatch and combine (``expert_einsum``), the token
 lookup (``embed``), the cross entropy (``nll``) and the gradients'
 placement (``grad``).  Each hook takes the plain code as its first
 argument where there is one, and runs it, and nothing else, unless the
@@ -214,6 +215,42 @@ def decode_attend(fn, q, k, v, ck, cv, cache_pos, **kw):
     out = fn(ql, k.to_local(), v.to_local(), ck.to_local(),
              cv.to_local(), pos, k_base=k_base, combine=combine, **kw)
     return _wrap(out, q, placements)
+
+
+def expert_einsum(fn, eq, a, b):
+    """An MoE form's dispatch (``bsec,bsd->becd``) or combine
+    (``becd,bsec->bsd``; ``fn`` is ``layers._einsum_bf16``), each rank's
+    own product of its local shards.  ``a`` leads: each mesh axis that
+    shards one of its subscripts shards the same subscript of ``b`` and
+    of the output, and where ``b`` or the output lacks it, ``b`` is
+    replicated there and the output is a pending sum (the combine's sum
+    over the experts; the dispatch's gradient of the tokens).  DTensor's
+    own einsum lowers the combine to a reshape that flattens (capacity,
+    experts) with the experts sharded, which torch 2.11's view rule
+    refuses."""
+    if not isinstance(a, DTensor):
+        return fn(eq, a, b)
+    ins, out = eq.split("->")
+    sa, sb = ins.split(",")
+    a = _to(a, tuple(Replicate() if p.is_partial() else p
+                     for p in a.placements))
+    pb, gb, po = [], [], []
+    for p in a.placements:
+        sub = sa[p.dim] if isinstance(p, Shard) else None
+        pb.append(Shard(sb.index(sub)) if sub and sub in sb else Replicate())
+        gb.append(Partial() if sub and sub not in sb else pb[-1])
+        po.append(Shard(out.index(sub)) if sub and sub in out
+                  else Partial() if sub else Replicate())
+    b = _to(b, tuple(pb))
+    local = fn(eq, a.to_local(grad_placements=a.placements),
+               b.to_local(grad_placements=tuple(gb)))
+    shape = [None] * len(out)
+    for i, sub in enumerate(out):
+        shape[i] = a.shape[sa.index(sub)] if sub in sa \
+            else b.shape[sb.index(sub)]
+    return DTensor.from_local(local, a.device_mesh, tuple(po),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=local.stride())
 
 
 def write_rows(fn, buf, upd, start, stacked):

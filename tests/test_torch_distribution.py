@@ -125,6 +125,31 @@ def test_quant_roundtrip_bit_for_bit(bits):
         _same(got, want)
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_strided_gradient_reaches_the_kernel_contiguous(bits, monkeypatch):
+    """A tied embedding's gradient is the transpose of its unembedding's
+    (tiny-lm's (259, 128) table: strides (1, 259)); the quant_pack kernel
+    reads rows in place and refuses a strided tensor, so the round trip
+    hands it contiguous rows.  Held against the plain version on the
+    CPU (which the wrapper runs here) and against JAX bit for bit."""
+    import repro_torch.distribution.kv_transfer as KT
+    seen = []
+    real = KT.quant_pack_op
+
+    def quant_pack_op(x, bits, group):
+        seen.append(x.is_contiguous())
+        return real(x, bits, group)
+
+    monkeypatch.setattr(KT, "quant_pack_op", quant_pack_op)
+    x = np.random.default_rng(3).standard_normal((128, 259)).astype(
+        np.float32)
+    g = _t(x).t()                      # (259, 128), strides (1, 259)
+    assert not g.is_contiguous()
+    got = PG._quant_roundtrip(g, bits, 64)
+    assert seen == [True]
+    _same(got, JG._quant_roundtrip(_j(np.ascontiguousarray(x.T)), bits, 64))
+
+
 @pytest.mark.parametrize("bits,group", [(4, 32), (8, 64)])
 def test_error_feedback_transform_bit_for_bit(bits, group):
     leaves = _leaves_for_roundtrip()

@@ -312,7 +312,8 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix()
     for p in list((REPO / "src" / "repro_torch").rglob("*.py"))
-    + [REPO / "chip_smoke.py"]))
+    + [REPO / "chip_smoke.py"]
+    + list((REPO / "examples").glob("torch_*.py"))))
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
