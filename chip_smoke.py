@@ -62,6 +62,16 @@ is caught:
    draft), which drafts every step; count the verify kernel's launches on
    that run, check the page tables, and hold one full-width W = 5 verify
    step through the kernel against the plain path.
+4b. Sync census: two 1,024-token requests of 8 decode tokens served as
+   phase 3 serves them, then the same with n-gram drafts (``spec_k=4``;
+   random weights give it no drafts, so the two-model draft runs too),
+   under ``torch.cuda.set_sync_debug_mode("warn")`` (reset to 0 in a
+   ``finally``): every sync PyTorch sees is charged to its innermost
+   frame under ``src/repro_torch``, and the syncs per decode iteration,
+   per verify iteration and per cold request (prefill, compress, land)
+   are printed by ``file:line``.  Gate: every site seen is a
+   ``host-sync`` finding of ``repro_torch.analysis`` on this tree, open
+   or suppressed.
 5. Offline profiling, the controller and one-shot PD serving: one
    full-width prefill's KV through the pipeline's device stages (the
    Hadamard kernel, quant_pack, dequant_unpack) against its host stages
@@ -2442,6 +2452,170 @@ def verify_reference_check(torch, strategy, cfg, params, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: the sync census of the serving steps.  Two cold requests of SEQ
+# tokens, CENSUS_DECODE decode tokens each, served as phase 3 serves them,
+# under torch.cuda.set_sync_debug_mode("warn"): PyTorch warns at every
+# synchronizing CUDA operation it sees, and the hook charges each warning
+# to the innermost frame under src/repro_torch.  The mode does not see
+# every sync (the caching allocator's cudaMalloc, the kernels' ctypes
+# libraries), so the gate holds one way only: each site seen here is a
+# host-sync finding of repro_torch.analysis, open or suppressed.
+# ---------------------------------------------------------------------------
+CENSUS_DECODE = 8
+CENSUS_SCENARIO = [("qalike", "standard", 0, CENSUS_DECODE, 0),
+                   ("codelike", "interactive", 1, CENSUS_DECODE, 0)]
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# a cold request's stages, by the runtime's function on the stack
+COLD_STAGES = (("prefill", "prefill"), ("select_and_compress", "compress"),
+               ("decompress_kvs", "land"), ("inject_restored", "land"),
+               ("fetch_entry", "land"), ("occupy", "land"))
+
+
+def sync_census(torch, dev, cfg, params, **spec):
+    """Serve CENSUS_SCENARIO (``spec``: RuntimeConfig's speculation
+    fields) under sync debug mode "warn".  Returns {"iterations": [(kind,
+    Counter of sites)] per decode iteration, kind "decode" or "verify";
+    "cold": Counter of (stage, site) outside the iterations; "outside":
+    syncs with no frame under src/repro_torch; "cold_requests"; "wall"}.
+    A site is "src/repro_torch/<file>:<line>"."""
+    import collections
+    import traceback
+    import warnings
+
+    from repro_torch.serving.workers import DecodeWorker
+
+    ours = str(ROOT / "src" / "repro_torch") + os.sep
+    iterations, cold = [], collections.Counter()
+    current, outside = [], [0]      # the open decode iteration's [kind, sites]
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(ours)]
+        if not frames:
+            outside[0] += 1
+            return
+        site = (f"{Path(frames[-1].filename).relative_to(ROOT).as_posix()}"
+                f":{frames[-1].lineno}")
+        if current:
+            current[-1][1][site] += 1
+        else:
+            names = {f.name for f in frames}
+            stage = next((s for n, s in COLD_STAGES if n in names), "other")
+            cold[(stage, site)] += 1
+
+    decode_iteration = DecodeWorker.decode_iteration
+    verify_iteration = DecodeWorker._verify_iteration
+
+    def counted_decode(self, active):
+        current.append(["decode", collections.Counter()])
+        try:
+            return decode_iteration(self, active)
+        finally:
+            iterations.append(tuple(current.pop()))
+
+    def counted_verify(self, active, proposals):
+        current[-1][0] = "verify"
+        return verify_iteration(self, active, proposals)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = hook
+        DecodeWorker.decode_iteration = counted_decode
+        DecodeWorker._verify_iteration = counted_verify
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rt, wall, _ = serve(torch, dev, cfg, params,
+                                scenario=CENSUS_SCENARIO, **spec)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            DecodeWorker.decode_iteration = decode_iteration
+            DecodeWorker._verify_iteration = verify_iteration
+    check_runtime(rt, cfg, CENSUS_SCENARIO, hits=())
+    release_arenas(torch, rt)
+    return {"iterations": iterations, "cold": cold, "outside": outside[0],
+            "cold_requests": sum(not r.pool_hit for r in rt.completed),
+            "wall": wall}
+
+
+def print_census(label, census) -> dict:
+    """Print a census's syncs per decode and per verify iteration and per
+    cold request, by site.  Returns {kind: syncs per iteration or request}."""
+    import collections
+
+    out = {}
+    for kind in ("decode", "verify"):
+        rows = [c for k, c in census["iterations"] if k == kind]
+        if not rows:
+            print(f"census {label}: no {kind} iterations")
+            continue
+        per = [sum(c.values()) for c in rows]
+        sites = sum(rows, collections.Counter())
+        out[kind] = sum(per) / len(rows)
+        print(f"census {label}: {len(rows)} {kind} iterations, "
+              f"{out[kind]:g} syncs per iteration (min {min(per)}, max "
+              f"{max(per)}); per iteration by site: " + ", ".join(
+                  f"{s} x{n / len(rows):g}" for s, n in sorted(sites.items())))
+    n = census["cold_requests"]
+    out["cold"] = sum(census["cold"].values()) / max(n, 1)
+    print(f"census {label}: {out['cold']:g} syncs per cold request ({n} "
+          f"cold requests); per request by stage and site: " + ", ".join(
+              f"{stage} {s} x{c / max(n, 1):g}"
+              for (stage, s), c in sorted(census["cold"].items())))
+    print(f"census {label}: {census['outside']} syncs outside "
+          f"src/repro_torch (the harness's own), {census['wall']:.2f} s "
+          f"wall")
+    return out
+
+
+def census_sites(census) -> set:
+    sites = {s for _, c in census["iterations"] for s in c}
+    return sites | {s for _, s in census["cold"]}
+
+
+def census_gate(sites) -> None:
+    """Every site seen on the card is a host-sync finding of the port's
+    rules on this tree, open or suppressed."""
+    from repro_torch.analysis import run_paths
+
+    open_, closed = run_paths([str(ROOT / "src" / "repro_torch")], base=ROOT)
+    reported = {f"{f.path}:{f.line}" for f in open_ + closed
+                if f.rule == "host-sync"}
+    missing = sorted(s for s in sites if s not in reported)
+    print(f"census gate: {len(sites)} sites seen on the card, "
+          f"{len(sites) - len(missing)} of them host-sync findings of "
+          f"repro_torch.analysis ({len(reported)} findings in all); not "
+          f"reported: {missing}")
+    check(not missing, "every sync site seen on the card is reported by the "
+          "port's host-sync rule")
+
+
+def census_phase(torch, dev, cfg, params) -> dict:
+    """Phase 4b: the plain run, then one n-gram speculative run with
+    spec_k=SPEC_K; random weights give n-gram lookahead no drafts, so
+    when it takes no verify step the two-model draft runs too.  Gated
+    by ``census_gate``.  Returns {run: print_census's numbers}."""
+    t0 = time.perf_counter()
+    out, sites = {}, set()
+    runs = [("plain", {}), ("ngram", {"spec_k": SPEC_K, "spec_kind": "ngram"})]
+    while runs:
+        label, spec = runs.pop(0)
+        census = sync_census(torch, dev, cfg, params, **spec)
+        out[label] = print_census(label, census)
+        sites |= census_sites(census)
+        if label == "ngram" and "verify" not in out[label]:
+            runs.append(("model", {"spec_k": SPEC_K, "spec_kind": "model"}))
+    check("decode" in out["plain"], "the census saw decode iterations")
+    check(any("verify" in o for o in out.values()),
+          "the census saw verify iterations")
+    census_gate(sites)
+    print(f"phase 4b: {time.perf_counter() - t0:.2f} s wall")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: offline profiling, the controller and the one-shot PD engine
 # ---------------------------------------------------------------------------
 P5_SEQ, P5_PROMPTS, P5_DECODE = 192, 4, 8     # profiling's quality runs
@@ -4114,6 +4288,9 @@ def main(argv) -> int:
     check(err <= tol and (same or gap <= tol),
           "full-width verify step through the kernel agrees with the plain "
           "path")
+
+    # ---- 4b. the sync census of the serving steps ----
+    census_phase(torch, dev, cfg, params)
 
     # ---- 5. offline profiling, controller, one-shot PD engine ----
     from repro_torch.core.strategy import BASELINES

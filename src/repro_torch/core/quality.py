@@ -151,6 +151,7 @@ def copy_cache_slot(cfg, dst, src, slot: int, src_idx: int = 0):
 
 
 def _as_tensor(arr, like: torch.Tensor) -> torch.Tensor:
+    # lint: sync-ok(host KV arrays land on the device once per injected request)
     return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
 
 
@@ -329,6 +330,7 @@ def copy_cache_slot_paged(cfg, pool, src, bt_row, page_size: int,
     """Paged ``copy_cache_slot``: land one prefilled source row in the
     pages of ``bt_row`` (a (PPS,) int32 row; 0 entries spill to scratch)."""
     _, copy = _paged_steps(cfg.name, page_size)
+    # lint: sync-ok(the slot's block-table row goes to the device once per landed request)
     return copy(pool, src, torch.as_tensor(np.asarray(bt_row),
                                            device=_device_of(pool)),
                 src_idx)
@@ -342,6 +344,7 @@ def _paged_scatter(cfg, pool, bt_row, k_arr, v_arr, upto: int,
     owned pages are written (partial-page tails are zero-filled; the slot
     is fresh, so nothing real is clobbered)."""
     n_used = -(-upto // page_size)
+    # lint: sync-ok(the slot's page rows go to the device once per landed request)
     rows = torch.as_tensor(np.asarray(bt_row)[:n_used], dtype=torch.long,
                            device=_device_of(pool))
     for key, arr in (("k", k_arr), ("v", v_arr)):
@@ -462,6 +465,7 @@ def _greedy_decode(dec_fn, params, caches, first_tokens: torch.Tensor,
     """Greedy continuation of ``first_tokens`` (B, 1) int32 on the device
     for ``steps`` tokens: (B, steps+1) on the host."""
     toks = first_tokens
+    # lint: sync-ok(offline reference decode for agreement scoring)
     out = [toks[:, 0].cpu().numpy()]
     pos = torch.full((toks.shape[0],), start_pos, dtype=torch.int32,
                      device=toks.device)
@@ -486,7 +490,6 @@ def _teacher_forced_agreement(dec_fn, params, caches, ref_tokens: np.ndarray,
     hits, total = 0, 0
     for t in range(t1 - 1):
         logits, caches = dec_fn(params, caches, ref[:, t:t + 1], pos + t)
-        # lint: sync-ok(offline reference decode for agreement scoring)
         pred = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         hits += int((pred == ref_tokens[:, t + 1]).sum())
         total += b

@@ -37,6 +37,7 @@ def _f32(value, like: torch.Tensor) -> torch.Tensor:
     """A Python number as an f32 scalar on ``like``'s device.  Dividing by
     it is the IEEE divide (PyTorch's CUDA divide by a Python scalar
     multiplies by its reciprocal)."""
+    # lint: sync-ok(training step, reached from the serving roots only by the name step - one scalar per leaf)
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 

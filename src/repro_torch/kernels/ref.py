@@ -89,6 +89,7 @@ def hadamard_table(d: int, device) -> torch.Tensor:
     key = (d, str(device))
     h = _HADAMARD.get(key)
     if h is None:
+        # lint: sync-ok(plain version's table, built once per size and device and cached)
         h = torch.from_numpy(hadamard_matrix(d)).to(device)
         _HADAMARD[key] = h
     return h

@@ -32,6 +32,7 @@ def _arr(shape, dtype, rng: Optional[np.random.Generator], device,
     else:
         # f64 draws rounded once to the dtype, as jnp.asarray rounds them
         a = rng.standard_normal(shape) * 0.02
+    # lint: sync-ok(offline input builder, reached by name only - seeded host draws land once)
     return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
 
 
@@ -59,6 +60,7 @@ def make_inputs(cfg: ModelConfig, kind: str, seq: int, batch: int,
     def decode(length, **enc):
         caches = init_cache(cfg, batch, max_len=length, device=device, **enc)
         return {"tokens": arr((batch, 1), i32, "tokens", v),
+                # lint: sync-ok(offline input builder, reached by name only - one scalar position)
                 "pos": torch.tensor(length - 1, dtype=i32, device=device),
                 "caches": caches}
 

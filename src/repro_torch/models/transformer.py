@@ -372,6 +372,7 @@ def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     dev = frames.device
     pos = torch.arange(s, dtype=torch.float32, device=dev)[:, None]
     dim = torch.arange(d // 2, dtype=torch.float32, device=dev)[None, :]
+    # lint: sync-ok(whisper encoder positions, once per prefill - a scalar base)
     angle = (pos / torch.pow(torch.tensor(10000.0, device=dev),
                              2 * dim / d)).double()
     pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).float()
@@ -491,6 +492,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos):
         xattn_kv, self_caches = caches["cross"], caches["self"]
     x = _embed(params, tokens)
     bsz, s = x.shape[0], x.shape[1]
+    # lint: sync-ok(the serving steps pass pos as a device tensor, which is not copied - a host int pos is copied once per step)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     offs = torch.arange(s, dtype=torch.int32, device=x.device)
     base = (pos[:, None] + offs[None, :] if pos.dim() == 1

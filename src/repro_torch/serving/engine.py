@@ -121,11 +121,11 @@ class DisaggregatedEngine:
         wire = KVWire(trace, self.estimator)
 
         # ---- prefill worker ----
+        # lint: sync-ok(one-shot engine: the prompt batch goes to the device once per batch)
         batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
                                            device=dev)}
         t0 = _clock([dev])
         logits, caches = self._pre(self.params, batch)
-        # lint: sync-ok(one-shot engine times real prefill wall-clock here)
         t_prefill = _clock([dev]) - t0
         first = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(
             torch.int32)

@@ -160,6 +160,7 @@ class ModelDraft:
         from repro_torch.core.quality import copy_cache_slot
         pre, _, _ = self._jitted()
         self._ensure()
+        # lint: sync-ok(draft prefill: the prompt goes to the device once per landed request)
         toks = torch.as_tensor(np.asarray(prompt_tokens, np.int32)[None, :],
                                device=self.model.device)
         _, caches = pre(self.model.params, {"tokens": toks})
@@ -196,6 +197,7 @@ class ModelDraft:
             pos[idx] = p
             self._positions[idx] = p
         dev = self.model.device
+        # lint: sync-ok(draft pass: the slot mask goes to the device once per verify step - CUDA-graph capture must stage it)
         dmask = torch.as_tensor(mask, device=dev)
         proposals: Dict[int, List[int]] = {idx: [] for idx, _, _, _ in items}
         # k_max proposal steps + one extra that only lands the last
@@ -203,7 +205,7 @@ class ModelDraft:
         for step in range(k_max + 1):
             nxt, self._caches = arena(
                 self.model.params, self._caches,
-                torch.as_tensor(toks[:, None], device=dev),
+                torch.as_tensor(toks[:, None], device=dev),  # lint: sync-ok(draft pass: tokens and positions go to the device k+1 times per verify step)
                 torch.as_tensor(pos + step, device=dev), dmask)
             # lint: sync-ok(draft-side proposal pull - the k+1 small host reads per verify step are the two-model path's documented cost)
             nxt = np.asarray(nxt.cpu())

@@ -364,11 +364,11 @@ class PrefillWorker:
                 "encoder-decoder model needs audio frames")
         pre1 = self._prefill_fn()
         dev = self.model.device
+        # lint: sync-ok(prefill: the prompt goes to the device once per cold request)
         batch = {"tokens": torch.as_tensor(np.asarray(tokens)[None, :],
                                            dtype=torch.int32, device=dev)}
         t0 = time.perf_counter()
         logits, caches = pre1(self.model.params, batch)
-        # lint: sync-ok(measures real prefill wall-clock for the EWMA model)
         _sync(dev)
         t_wall = time.perf_counter() - t0
         t_prefill = (req.ctx_tokens / self.cfg.prefill_tok_s
@@ -633,6 +633,7 @@ class DecodeWorker:
         dev = self.model.device
 
         def dev_t(a):
+            # lint: sync-ok(five host-state copies per decode step - CUDA-graph capture must stage them in pinned buffers)
             return torch.as_tensor(a, device=dev)
 
         if self.cfg.paged:
@@ -687,6 +688,7 @@ class DecodeWorker:
         dev = self.model.device
 
         def dev_t(a):
+            # lint: sync-ok(five host-state copies per verify step - CUDA-graph capture must stage them in pinned buffers)
             return torch.as_tensor(a, device=dev)
 
         if self.cfg.paged:
