@@ -1,0 +1,5 @@
+"""The benchmark harness of the PyTorch port: one cell, one seed, one run.
+
+Everything that belongs to one configuration, traffic mix, cell or
+per-layer metric is a data file (or, for a metric, a small reader) under
+``kvbench/``, found by the name ``BENCHMARK.json`` gives it."""

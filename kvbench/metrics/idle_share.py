@@ -1,0 +1,9 @@
+"""Device: the share (%) of the traced sub-window in which no kernel, copy
+or set ran on the card (one minus the union of their intervals over the
+window)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
