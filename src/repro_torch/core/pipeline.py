@@ -48,6 +48,7 @@ from repro_torch.core.transforms import (
     transform_meta_bytes,
 )
 from repro_torch.core.strategy import device_quantizable, paged_eligible
+from repro_torch.utils.timing import count_bytes, span
 
 HEADER_BYTES = 64  # fixed per-message framing overhead
 
@@ -125,8 +126,10 @@ class DeviceKVCache(KVCache):
         return int(self.k.numel() + self.v.numel()) * SOURCE_BYTES
 
     def to_host(self) -> KVCache:
-        return KVCache(self.k.float().cpu().numpy(),
-                       self.v.float().cpu().numpy())
+        with span("to_host"):
+            k, v = self.k.float(), self.v.float()
+            count_bytes("to_host_bytes", k, v)
+            return KVCache(k.cpu().numpy(), v.cpu().numpy())
 
 
 def _sync(device) -> None:
@@ -164,13 +167,17 @@ def _device_quantize(x: torch.Tensor, bits: int, group: int,
         u = torch.stack([codes & 0x0F, codes >> 4], dim=-1)
     else:
         u = (codes.to(torch.int16) + (1 << (bits - 1))).to(torch.uint8)
-    # lint: sync-ok(compress stage - the host codec entropy-codes the device-quantized codes and scales, once per cold request)
-    u = u.reshape(L * H, S, D).cpu().numpy()
-    # lint: sync-ok(compress stage - the scales follow the codes, once per cold request)
-    scale = scales.to(torch.float16).cpu().numpy().reshape(
-        L * H, S, D // group, 1)
+    u, scales = u.reshape(L * H, S, D), scales.to(torch.float16)
+    with span("to_host"):
+        count_bytes("to_host_bytes", u, scales)
+        # lint: sync-ok(compress stage - the host codec entropy-codes the device-quantized codes and scales, once per cold request)
+        u = u.cpu().numpy()
+        # lint: sync-ok(compress stage - the scales follow the codes, once per cold request)
+        scale = scales.cpu().numpy().reshape(L * H, S, D // group, 1)
+    with span("encode"):
+        payload = codecs.encode_codes(u, bits, codec)
     return _BucketWire(
-        payload=codecs.encode_codes(u, bits, codec), bits=bits,
+        payload=payload, bits=bits,
         grouping="per_token", group_size=group, symmetric=True,
         codes_shape=tuple(u.shape), lh_index=_lh_index(L, H), scale=scale,
         zp=None, token_index=None)
@@ -184,16 +191,20 @@ def _device_dequantize(w: _BucketWire, shape, codec: str,
 
     L, H, S, D = shape
     count = int(np.prod(w.codes_shape))
-    u = torch.from_numpy(codecs.decode_codes(w.payload, w.bits, count, codec))
-    # lint: sync-ok(decompress stage - the host codec's decoded codes and scales go to the device once per landed request)
-    u = u.to(device).reshape(-1, D)
+    with span("unpack"):
+        u = torch.from_numpy(codecs.decode_codes(w.payload, w.bits, count,
+                                                 codec))
+    scales = torch.from_numpy(w.scale.reshape(-1, D // w.group_size))
+    with span("to_device"):
+        count_bytes("to_device_bytes", u, scales)
+        # lint: sync-ok(decompress stage - the host codec's decoded codes and scales go to the device once per landed request)
+        u = u.to(device).reshape(-1, D)
+        # lint: sync-ok(decompress stage - the scales follow the codes, once per landed request)
+        scales = scales.to(device).float()
     if w.bits == 4:
         codes = u[:, 0::2] | (u[:, 1::2] << 4)
     else:
         codes = (u.to(torch.int16) - (1 << (w.bits - 1))).to(torch.int8)
-    # lint: sync-ok(decompress stage - the scales follow the codes, once per landed request)
-    scales = torch.from_numpy(w.scale.reshape(-1, D // w.group_size)).to(
-        device).float()
     x = dequant_unpack_op(codes.contiguous(), scales, bits=w.bits,
                           group=w.group_size, out_dtype=torch.float32)
     return x.reshape(L, H, S, D)
@@ -269,13 +280,18 @@ class CompressionPipeline:
     def _on_device(self, head_dim: int) -> bool:
         return paged_eligible(self.strategy, head_dim=head_dim)
 
+    def _needs_scores(self) -> bool:
+        """Whether the quantizer takes head scores from the K itself."""
+        return (self.head_scores is None
+                and self.strategy.quantizer in ("mixhq", "duo"))
+
     def _quantize(self, k_t, v_t, k_ctx, v_ctx, shape,
                   scores_of) -> CompressedKV:
         """Stages Q and C of transformed host arrays (``scores_of()``
         gives the K the default head scores are taken from)."""
         cfg = self.strategy
         scores = self.head_scores
-        if scores is None and cfg.quantizer in ("mixhq", "duo"):
+        if self._needs_scores():
             scores = head_importance_scores(scores_of())
         k_q = quantize_tensor(k_t, cfg, is_key=True, head_scores=scores)
         v_q = quantize_tensor(v_t, cfg, is_key=False, head_scores=scores)
@@ -301,10 +317,19 @@ class CompressionPipeline:
                 v_buckets=[_device_quantize(v_t, cfg.value_bits,
                                             cfg.group_size, cfg.codec)],
                 k_ctx=ctx, v_ctx=dict(ctx))
-        # lint: sync-ok(host-quantizer compress path for profiles the device quantizer does not take, once per cold request)
-        return self._quantize(k_t.cpu().numpy(), v_t.cpu().numpy(), ctx,
-                              dict(ctx), tuple(kv.shape),
-                              lambda: kv.k.float().cpu().numpy())
+        # The default head scores read the unrotated K: pulled beside the
+        # rotated tensors when the quantizer asks for them.
+        k = kv.k.float() if self._needs_scores() else None
+        with span("to_host"):
+            count_bytes("to_host_bytes", k_t, v_t)
+            if k is not None:
+                count_bytes("to_host_bytes", k)
+            # lint: sync-ok(host-quantizer compress path for profiles the device quantizer does not take, once per cold request)
+            k_h, v_h = k_t.cpu().numpy(), v_t.cpu().numpy()
+            k = None if k is None else k.cpu().numpy()
+        with span("encode"):
+            return self._quantize(k_h, v_h, ctx, dict(ctx),
+                                  tuple(kv.shape), lambda: k)
 
     # ------------------------------------------------------------------
     def compress(self, kv: KVCache) -> CompressedKV:
@@ -321,17 +346,18 @@ class CompressionPipeline:
             if cfg.transform == "hadamard" and not is_identity(cfg):
                 return self._compress_rotated(kv)
             kv = kv.to_host()
-        if is_identity(cfg):
-            payload = np.concatenate(
-                [kv.k.ravel(), kv.v.ravel()]
-            ).astype(np.float16).tobytes()
-            return CompressedKV(cfg, kv.shape, [], [], {"kind": "none"},
-                                {"kind": "none"}, identity_payload=payload)
+        with span("encode"):
+            if is_identity(cfg):
+                payload = np.concatenate(
+                    [kv.k.ravel(), kv.v.ravel()]
+                ).astype(np.float16).tobytes()
+                return CompressedKV(cfg, kv.shape, [], [], {"kind": "none"},
+                                    {"kind": "none"}, identity_payload=payload)
 
-        k_t, k_ctx = apply_transform(cfg.transform, kv.k, cfg.delta_group)
-        v_t, v_ctx = apply_transform(cfg.transform, kv.v, cfg.delta_group)
-        return self._quantize(k_t, v_t, k_ctx, v_ctx, kv.shape,
-                              lambda: kv.k)
+            k_t, k_ctx = apply_transform(cfg.transform, kv.k, cfg.delta_group)
+            v_t, v_ctx = apply_transform(cfg.transform, kv.v, cfg.delta_group)
+            return self._quantize(k_t, v_t, k_ctx, v_ctx, kv.shape,
+                                  lambda: kv.k)
 
     # ------------------------------------------------------------------
     def decompress(self, comp: CompressedKV) -> KVCache:
@@ -349,25 +375,26 @@ class CompressionPipeline:
                                           comp.k_ctx),
                     self._restore_rotated(cfg, comp.v_buckets, comp.shape,
                                           comp.v_ctx))
-        if comp.identity_payload is not None:
-            n = int(np.prod(comp.shape))
-            flat = np.frombuffer(comp.identity_payload, dtype=np.float16,
-                                 count=2 * n).astype(np.float32)
-            k = flat[:n].reshape(comp.shape)
-            v = flat[n:].reshape(comp.shape)
-            return KVCache(k, v)
+        with span("unpack"):
+            if comp.identity_payload is not None:
+                n = int(np.prod(comp.shape))
+                flat = np.frombuffer(comp.identity_payload, dtype=np.float16,
+                                     count=2 * n).astype(np.float32)
+                k = flat[:n].reshape(comp.shape)
+                v = flat[n:].reshape(comp.shape)
+                return KVCache(k, v)
 
-        # The quantizer operated on *transformed* tensors whose channel dim
-        # may have been padded (hadamard); recover that shape.
-        k_shape = self._transformed_shape(comp.shape, comp.k_ctx)
-        v_shape = self._transformed_shape(comp.shape, comp.v_ctx)
-        k_q = _decode_quantized(comp.k_buckets, k_shape, cfg.codec)
-        v_q = _decode_quantized(comp.v_buckets, v_shape, cfg.codec)
-        k_t = k_q.dequantize()
-        v_t = v_q.dequantize()
-        k = invert_transform(k_t, comp.k_ctx)
-        v = invert_transform(v_t, comp.v_ctx)
-        return KVCache(k, v)
+            # The quantizer operated on *transformed* tensors whose channel
+            # dim may have been padded (hadamard); recover that shape.
+            k_shape = self._transformed_shape(comp.shape, comp.k_ctx)
+            v_shape = self._transformed_shape(comp.shape, comp.v_ctx)
+            k_q = _decode_quantized(comp.k_buckets, k_shape, cfg.codec)
+            v_q = _decode_quantized(comp.v_buckets, v_shape, cfg.codec)
+            k_t = k_q.dequantize()
+            v_t = v_q.dequantize()
+            k = invert_transform(k_t, comp.k_ctx)
+            v = invert_transform(v_t, comp.v_ctx)
+            return KVCache(k, v)
 
     def _restore_rotated(self, cfg: StrategyConfig,
                          wires: List[_BucketWire], shape,
@@ -380,10 +407,13 @@ class CompressionPipeline:
         if device_quantizable(cfg, head_dim=ctx["pad_dim"]):
             y = _device_dequantize(wires[0], t_shape, cfg.codec, self.device)
         else:
-            y = torch.from_numpy(_decode_quantized(
-                wires, t_shape, cfg.codec).dequantize())
-            # lint: sync-ok(host-dequantizer decompress path, once per landed request)
-            y = y.to(self.device)
+            with span("unpack"):
+                y = torch.from_numpy(_decode_quantized(
+                    wires, t_shape, cfg.codec).dequantize())
+            with span("to_device"):
+                count_bytes("to_device_bytes", y)
+                # lint: sync-ok(host-dequantizer decompress path, once per landed request)
+                y = y.to(self.device)
         return _rotate(y, ctx["pad_dim"])[..., :ctx["orig_dim"]]
 
     @staticmethod

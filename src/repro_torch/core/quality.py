@@ -30,6 +30,7 @@ from repro_torch.core.strategy import StrategyConfig, is_identity
 from repro_torch.data.synthetic import WORKLOADS, make_batch, make_prompt
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.layers import PagedKV
+from repro_torch.utils.timing import count_bytes, span
 
 CACHE_DIR = Path(os.environ.get("REPRO_CACHE_DIR",
                                 Path.home() / ".cache" / "repro"))
@@ -151,8 +152,12 @@ def copy_cache_slot(cfg, dst, src, slot: int, src_idx: int = 0):
 
 
 def _as_tensor(arr, like: torch.Tensor) -> torch.Tensor:
-    # lint: sync-ok(host KV arrays land on the device once per injected request)
-    return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=like.device, dtype=like.dtype)
+    with span("to_device"):
+        count_bytes("to_device_bytes", arr)
+        # lint: sync-ok(host KV arrays land on the device once per injected request)
+        return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
 
 
 def inject_kv(cfg, caches, batch_idx: int, kv: KVCache):

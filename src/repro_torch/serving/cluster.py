@@ -87,6 +87,7 @@ from repro_torch.serving.workers import (
     decompress_kvs,
     recompress_entry,
 )
+from repro_torch.utils.timing import span
 
 
 @dataclass
@@ -764,12 +765,13 @@ class ClusterRuntime:
             req.route = route.name
             req.slot = route.decode.free_slots.pop()
             pwid = route.prefill.wid
-            if self.cfg.mode == "pd":
-                end, self._step_busy[pwid] = self._start_request_pd(
-                    req, route, now, self._step_busy[pwid])
-            else:
-                end, self._step_busy[pwid] = self._start_request(
-                    req, route, now, self._step_busy[pwid])
+            with span("start", req.rid):
+                if self.cfg.mode == "pd":
+                    end, self._step_busy[pwid] = self._start_request_pd(
+                        req, route, now, self._step_busy[pwid])
+                else:
+                    end, self._step_busy[pwid] = self._start_request(
+                        req, route, now, self._step_busy[pwid])
             started.append((route.decode.slots[req.rid], end))
         return started
 
@@ -779,53 +781,54 @@ class ClusterRuntime:
         worker advances its previously-running slots one token (one
         masked batched decode per worker).  The iteration costs ``max``
         over all streams; the difference is charged as stall."""
-        now = self.clock
-        started = self._admit_and_start(now)
-        prefill_cost = max((end for _, end in started), default=0.0)
-        new_rids = {s.req.rid for s, _ in started}
+        with span("step"):
+            now = self.clock
+            started = self._admit_and_start(now)
+            prefill_cost = max((end for _, end in started), default=0.0)
+            new_rids = {s.req.rid for s, _ in started}
 
-        # Decode streams: each worker one masked jitted arena call.
-        decode_streams: List[Tuple[float, List[Slot]]] = []
-        active_total = 0
-        for dw in self.decode_workers:
-            active = [s for rid, s in dw.slots.items()
-                      if rid not in new_rids]
-            if not active:
-                continue
-            wall = dw.decode_iteration(active)
-            cost = (1.0 / self.cfg.decode_tok_s
-                    if self.cfg.decode_tok_s else wall)
-            decode_streams.append((cost, active))
-            active_total += len(active)
+            # Decode streams: each worker one masked jitted arena call.
+            decode_streams: List[Tuple[float, List[Slot]]] = []
+            active_total = 0
+            for dw in self.decode_workers:
+                active = [s for rid, s in dw.slots.items()
+                          if rid not in new_rids]
+                if not active:
+                    continue
+                wall = dw.decode_iteration(active)
+                cost = (1.0 / self.cfg.decode_tok_s
+                        if self.cfg.decode_tok_s else wall)
+                decode_streams.append((cost, active))
+                active_total += len(active)
 
-        # The iteration costs the slowest stream (PD-separated workers run
-        # concurrently); the difference is charged to each slot as
-        # "stall" so breakdowns sum exactly to jct.
-        iter_cost = max([prefill_cost]
-                        + [cost for cost, _ in decode_streams])
-        for cost, active in decode_streams:
-            for slot in active:
-                slot.breakdown["decode"] = \
-                    slot.breakdown.get("decode", 0.0) + cost
+            # The iteration costs the slowest stream (PD-separated workers run
+            # concurrently); the difference is charged to each slot as
+            # "stall" so breakdowns sum exactly to jct.
+            iter_cost = max([prefill_cost]
+                            + [cost for cost, _ in decode_streams])
+            for cost, active in decode_streams:
+                for slot in active:
+                    slot.breakdown["decode"] = \
+                        slot.breakdown.get("decode", 0.0) + cost
+                    slot.breakdown["stall"] = \
+                        slot.breakdown.get("stall", 0.0) + iter_cost - cost
+            for slot, end_offset in started:
                 slot.breakdown["stall"] = \
-                    slot.breakdown.get("stall", 0.0) + iter_cost - cost
-        for slot, end_offset in started:
-            slot.breakdown["stall"] = \
-                slot.breakdown.get("stall", 0.0) + iter_cost - end_offset
-        self.clock = now + iter_cost
-        self.steps += 1
-        for dw in self.decode_workers:
-            for slot in list(dw.slots.values()):
-                if len(slot.toks) > slot.req.out_tokens:
-                    self._finish(dw, slot, self.clock)
+                    slot.breakdown.get("stall", 0.0) + iter_cost - end_offset
+            self.clock = now + iter_cost
+            self.steps += 1
+            for dw in self.decode_workers:
+                for slot in list(dw.slots.values()):
+                    if len(slot.toks) > slot.req.out_tokens:
+                        self._finish(dw, slot, self.clock)
 
-        stats = {"step": float(self.steps), "clock": self.clock,
-                 "in_flight": float(active_total + len(started)),
-                 "queue_depth": float(self.scheduler.queue_depth),
-                 "completed": float(len(self.completed)),
-                 "store_used": float(sum(t.store.used_bytes
-                                         for t in self._distinct_tiers()))}
-        self.step_log.append(stats)
+            stats = {"step": float(self.steps), "clock": self.clock,
+                     "in_flight": float(active_total + len(started)),
+                     "queue_depth": float(self.scheduler.queue_depth),
+                     "completed": float(len(self.completed)),
+                     "store_used": float(sum(
+                         t.store.used_bytes for t in self._distinct_tiers()))}
+            self.step_log.append(stats)
         return stats
 
     # ------------------------------------------------------------------

@@ -53,6 +53,7 @@ from repro_torch.core.quality import (
 from repro_torch.core.strategy import StrategyConfig, paged_eligible
 from repro_torch.serving.kvstore import TierSpec
 from repro_torch.serving.request import Request
+from repro_torch.utils.timing import count, span
 
 
 def _select_profile(controller: Optional[ServiceAwareController],
@@ -79,9 +80,10 @@ def compress_kvs(strategy: StrategyConfig, kvs: Sequence[Any]
     ``(payloads, wire_bytes, measured_seconds)``."""
     pipe = CompressionPipeline(strategy)
     devices = {kv.k.device for kv in kvs if isinstance(kv, DeviceKVCache)}
-    t0 = _clock(devices)
-    comps = [pipe.compress(kv) for kv in kvs]
-    t_wall = _clock(devices) - t0
+    with span("compress"):
+        t0 = _clock(devices)
+        comps = [pipe.compress(kv) for kv in kvs]
+        t_wall = _clock(devices) - t0
     return comps, sum(c.total_bytes() for c in comps), t_wall
 
 
@@ -91,10 +93,11 @@ def decompress_kvs(comps: Sequence[CompressedKV], device=None
     on ``device``, through ``dequant_unpack`` and ``hadamard``, when one
     is given).  Returns ``(kvs, measured_seconds)``."""
     devices = [] if device is None else [device]
-    t0 = _clock(devices)
-    kvs = [CompressionPipeline(c.strategy, device=device).decompress(c)
-           for c in comps]
-    t_wall = _clock(devices) - t0
+    with span("decompress"):
+        t0 = _clock(devices)
+        kvs = [CompressionPipeline(c.strategy, device=device).decompress(c)
+               for c in comps]
+        t_wall = _clock(devices) - t0
     return kvs, t_wall
 
 
@@ -332,8 +335,6 @@ class PrefillWorker:
         self.cfg = cfg
         self.controller = controller
         self.static_profile = static_profile
-        self.prefills = 0             # lifetime prefill count
-        self.busy_seconds = 0.0       # lifetime prefill-stream occupancy
         self._ewma_prefill: Optional[float] = None
         self._pre1 = None
 
@@ -362,23 +363,22 @@ class PrefillWorker:
             raise NotImplementedError(
                 f"{self.model.cfg.name}: the runtime serves text prompts; an "
                 "encoder-decoder model needs audio frames")
-        pre1 = self._prefill_fn()
-        dev = self.model.device
-        # lint: sync-ok(prefill: the prompt goes to the device once per cold request)
-        batch = {"tokens": torch.as_tensor(np.asarray(tokens)[None, :],
-                                           dtype=torch.int32, device=dev)}
-        t0 = time.perf_counter()
-        logits, caches = pre1(self.model.params, batch)
-        _sync(dev)
-        t_wall = time.perf_counter() - t0
-        t_prefill = (req.ctx_tokens / self.cfg.prefill_tok_s
-                     if self.cfg.prefill_tok_s else t_wall)
-        self.prefills += 1
-        self.busy_seconds += t_prefill
-        self._ewma_prefill = t_wall if self._ewma_prefill is None \
-            else 0.7 * self._ewma_prefill + 0.3 * t_wall
-        # lint: sync-ok(one first-token pull per prefill seeds the decode slot)
-        first = int(torch.argmax(logits[:, -1, :], dim=-1).cpu()[0])
+        with span("prefill"):
+            pre1 = self._prefill_fn()
+            dev = self.model.device
+            # lint: sync-ok(prefill: the prompt goes to the device once per cold request)
+            batch = {"tokens": torch.as_tensor(np.asarray(tokens)[None, :],
+                                               dtype=torch.int32, device=dev)}
+            t0 = time.perf_counter()
+            logits, caches = pre1(self.model.params, batch)
+            _sync(dev)
+            t_wall = time.perf_counter() - t0
+            t_prefill = (req.ctx_tokens / self.cfg.prefill_tok_s
+                         if self.cfg.prefill_tok_s else t_wall)
+            self._ewma_prefill = t_wall if self._ewma_prefill is None \
+                else 0.7 * self._ewma_prefill + 0.3 * t_wall
+            # lint: sync-ok(one first-token pull per prefill seeds the decode slot)
+            first = int(torch.argmax(logits[:, -1, :], dim=-1).cpu()[0])
         return caches, first, t_prefill
 
     # ------------------------------------------------------------------
@@ -388,17 +388,19 @@ class PrefillWorker:
         """Controller decision + real compression of the prefix KV (left
         on the device; paged-eligible profiles quantize there).  Returns
         ``(comp, ctx, decision, profile, t_compress)``."""
-        kv = extract_kv(self.model.cfg, caches, 0, upto=self.cfg.seq)
-        t_decode = (req.out_tokens / self.cfg.decode_tok_s
-                    if self.cfg.decode_tok_s else 0.0)
-        ctx = ServiceContext(
-            workload=req.workload, bandwidth=bandwidth,
-            t_slo=req.t_slo, q_min=req.q_min, t_model=t_prefill,
-            kv_bytes=kv.nbytes_wire(),
-            slo_metric=req.resolved_slo_metric(slo_default),
-            route=route, decode_time=t_decode)
-        profile, decision = _select_profile(self.controller,
-                                            self.static_profile, ctx)
+        with span("extract"):
+            kv = extract_kv(self.model.cfg, caches, 0, upto=self.cfg.seq)
+        with span("select"):
+            t_decode = (req.out_tokens / self.cfg.decode_tok_s
+                        if self.cfg.decode_tok_s else 0.0)
+            ctx = ServiceContext(
+                workload=req.workload, bandwidth=bandwidth,
+                t_slo=req.t_slo, q_min=req.q_min, t_model=t_prefill,
+                kv_bytes=kv.nbytes_wire(),
+                slo_metric=req.resolved_slo_metric(slo_default),
+                route=route, decode_time=t_decode)
+            profile, decision = _select_profile(self.controller,
+                                                self.static_profile, ctx)
         comps, _, t_wall = compress_kvs(profile.strategy, [kv])
         t_compress = codec_cost(self.cfg, t_wall, kv.nbytes_wire(),
                                 profile.s_enc)
@@ -429,7 +431,6 @@ class DecodeWorker:
         self._arena: Any = None          # cache tree, leading axis n_slots
         self._positions = np.zeros(n_slots, np.int32)  # next write pos
         self._last_tok = np.zeros(n_slots, np.int32)   # last emitted tok
-        self.decode_steps = 0            # lifetime arena decode calls
         # Paged-arena state (cfg.paged): the fp pool replaces the dense
         # arena in self._arena; the parallel quant pools hold pages valid
         # per slot below its _quant_len watermark.
@@ -501,29 +502,31 @@ class DecodeWorker:
     def copy_from_caches(self, caches, idx: int) -> None:
         """Materialize arena row ``idx`` from a prefill worker's batch-1
         cache (the cold path's slot hand-off)."""
-        self.ensure_arena()
-        if self.cfg.paged:
-            self.page_table.ensure(idx, self.cfg.seq)
-            row = self.page_table.block_row(idx, self._pps)
-            self._arena = copy_cache_slot_paged(
-                self.model.cfg, self._arena, caches, row,
-                self.cfg.page_size)
-            self._quant_len[idx] = 0
-            return
-        self._arena = copy_cache_slot(self.model.cfg, self._arena,
-                                      caches, idx)
+        with span("inject"):
+            self.ensure_arena()
+            if self.cfg.paged:
+                self.page_table.ensure(idx, self.cfg.seq)
+                row = self.page_table.block_row(idx, self._pps)
+                self._arena = copy_cache_slot_paged(
+                    self.model.cfg, self._arena, caches, row,
+                    self.cfg.page_size)
+                self._quant_len[idx] = 0
+                return
+            self._arena = copy_cache_slot(self.model.cfg, self._arena,
+                                          caches, idx)
 
     def inject_restored(self, kv, idx: int) -> None:
         """Materialize arena row ``idx`` from a wire-restored KV."""
-        self.ensure_arena()
-        if self.cfg.paged:
-            self.page_table.ensure(idx, kv.seq)
-            row = self.page_table.block_row(idx, self._pps)
-            self._arena = inject_kv_paged(self.model.cfg, self._arena,
-                                          row, kv, self.cfg.page_size)
-            self._quant_len[idx] = 0
-            return
-        self._arena = inject_kv(self.model.cfg, self._arena, idx, kv)
+        with span("inject"):
+            self.ensure_arena()
+            if self.cfg.paged:
+                self.page_table.ensure(idx, kv.seq)
+                row = self.page_table.block_row(idx, self._pps)
+                self._arena = inject_kv_paged(self.model.cfg, self._arena,
+                                              row, kv, self.cfg.page_size)
+                self._quant_len[idx] = 0
+                return
+            self._arena = inject_kv(self.model.cfg, self._arena, idx, kv)
 
     def fetch_entry(self, entry, idx: int) -> Tuple[int, float]:
         """Land a stored pool entry in arena slot ``idx``.  Returns
@@ -612,59 +615,68 @@ class DecodeWorker:
         drafts it is ONE multi-token verify step: each slot commits the
         longest draft prefix the target would have emitted plus the bonus
         token (DESIGN.md §15), 1..width tokens per slot.  Returns the
-        measured wall seconds."""
-        proposals: Dict[int, List[int]] = {}
-        if self.cfg.spec_k > 0:
-            spec = [s for s in active if s.spec_k > 0]
-            if spec:
-                items = [(s.idx, s.req.rid, int(self._last_tok[s.idx]),
-                          int(self._positions[s.idx])) for s in spec]
-                budgets = {s.idx: s.spec_k for s in spec}
-                proposals = {i: d for i, d in
-                             self.draft().propose_all(items, budgets).items()
-                             if d}
-        if proposals:
-            return self._verify_iteration(active, proposals)
-        mask = np.zeros(self.n_slots, bool)
-        for slot in active:
-            mask[slot.idx] = True
-        dec = self._arena_fn()
-        self.ensure_arena()
-        dev = self.model.device
+        measured wall seconds.  The one-token step is traced in four spans
+        that tile it: ``prepare`` (page growth and the host state's copies
+        to the device), ``launch`` (the arena call's enqueue), ``pull``
+        (the token pull, the step's one sync) and ``commit``."""
+        with span("decode_iteration"):
+            count("decode_slots", len(active))
+            proposals: Dict[int, List[int]] = {}
+            if self.cfg.spec_k > 0:
+                spec = [s for s in active if s.spec_k > 0]
+                if spec:
+                    items = [(s.idx, s.req.rid, int(self._last_tok[s.idx]),
+                              int(self._positions[s.idx])) for s in spec]
+                    budgets = {s.idx: s.spec_k for s in spec}
+                    proposals = {
+                        i: d for i, d in
+                        self.draft().propose_all(items, budgets).items()
+                        if d}
+            if proposals:
+                return self._verify_iteration(active, proposals)
+            dev = self.model.device
 
-        def dev_t(a):
-            # lint: sync-ok(five host-state copies per decode step - CUDA-graph capture must stage them in pinned buffers)
-            return torch.as_tensor(a, device=dev)
+            def dev_t(a):
+                # lint: sync-ok(five host-state copies per decode step - CUDA-graph capture must stage them in pinned buffers)
+                return torch.as_tensor(a, device=dev)
 
-        if self.cfg.paged:
-            # Grow each live slot to cover this step's write position —
-            # the on-demand allocation that replaces worst-case sizing.
-            for slot in active:
-                self.page_table.ensure(slot.idx,
-                                       int(self._positions[slot.idx]) + 1)
-            t0 = time.perf_counter()
-            nxt, self._arena = dec(
-                self.model.params, self._arena, self._qcodes,
-                self._qscales, dev_t(self._block_tables()),
-                dev_t(self._quant_len), dev_t(self._last_tok[:, None]),
-                dev_t(self._positions), dev_t(mask))
-        else:
-            t0 = time.perf_counter()
-            nxt, self._arena = dec(
-                self.model.params, self._arena,
-                dev_t(self._last_tok[:, None]), dev_t(self._positions),
-                dev_t(mask))
-        # lint: sync-ok(the step's single sanctioned sync - one batched pull)
-        nxt = np.asarray(nxt.cpu())
-        wall = time.perf_counter() - t0
-        for slot in active:
-            t = int(nxt[slot.idx])
-            slot.toks.append(t)
-            self._last_tok[slot.idx] = t
-            self._positions[slot.idx] += 1
-            if slot.spec_k > 0 and self._draft is not None:
-                self._draft.commit(slot.idx, slot.req.rid, [t])
-        self.decode_steps += 1
+            with span("prepare"):
+                mask = np.zeros(self.n_slots, bool)
+                for slot in active:
+                    mask[slot.idx] = True
+                dec = self._arena_fn()
+                self.ensure_arena()
+                if self.cfg.paged:
+                    # Grow each live slot to cover this step's write
+                    # position — the on-demand allocation that replaces
+                    # worst-case sizing.
+                    for slot in active:
+                        self.page_table.ensure(
+                            slot.idx, int(self._positions[slot.idx]) + 1)
+                    t0 = time.perf_counter()
+                    state = (self._qcodes, self._qscales,
+                             dev_t(self._block_tables()),
+                             dev_t(self._quant_len),
+                             dev_t(self._last_tok[:, None]),
+                             dev_t(self._positions), dev_t(mask))
+                else:
+                    t0 = time.perf_counter()
+                    state = (dev_t(self._last_tok[:, None]),
+                             dev_t(self._positions), dev_t(mask))
+            with span("launch"):
+                nxt, self._arena = dec(self.model.params, self._arena, *state)
+            with span("pull"):
+                # lint: sync-ok(the step's single sanctioned sync - one batched pull)
+                nxt = np.asarray(nxt.cpu())
+            wall = time.perf_counter() - t0
+            with span("commit"):
+                for slot in active:
+                    t = int(nxt[slot.idx])
+                    slot.toks.append(t)
+                    self._last_tok[slot.idx] = t
+                    self._positions[slot.idx] += 1
+                    if slot.spec_k > 0 and self._draft is not None:
+                        self._draft.commit(slot.idx, slot.req.rid, [t])
         return wall
 
     def _verify_iteration(self, active: List[Slot],
@@ -731,5 +743,4 @@ class DecodeWorker:
             if self.cfg.paged and drafts:
                 self.page_table.release_tail(
                     slot.idx, int(self._positions[slot.idx]))
-        self.decode_steps += 1
         return wall
