@@ -1973,10 +1973,12 @@ def check_runtime(rt, cfg, scenario=SCENARIO, hits=(3, 5, 6)) -> None:
 
 
 def release_arenas(torch, rt) -> None:
-    """Free a finished runtime's page pools (~3 GB at full width) and a
-    draft model's arena before the next phase allocates its own."""
+    """Free a finished runtime's page pools (~3 GB at full width), its
+    decode graphs and a draft model's arena before the next phase
+    allocates its own."""
     for dw in rt.decode_workers:
         dw._arena = dw._qcodes = dw._qscales = dw._draft = None
+        dw._paged_step = None
     torch.cuda.empty_cache()
 
 

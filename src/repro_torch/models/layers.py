@@ -95,12 +95,14 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     freqs = rope_frequencies(d, theta, device=x.device)
     t_sec = half // 2
     h_sec = (half - t_sec) // 2
-    # which position stream each frequency slot reads
+    # which position stream each frequency slot reads (made on the
+    # device: a copy from the host cannot enter a captured decode step)
     sec_of = torch.cat([
-        torch.zeros(t_sec, dtype=torch.long),
-        torch.ones(h_sec, dtype=torch.long),
-        torch.full((half - t_sec - h_sec,), 2, dtype=torch.long),
-    ]).to(x.device)
+        torch.zeros(t_sec, dtype=torch.long, device=x.device),
+        torch.ones(h_sec, dtype=torch.long, device=x.device),
+        torch.full((half - t_sec - h_sec,), 2, dtype=torch.long,
+                   device=x.device),
+    ])
     pos = positions3.permute(1, 2, 0).float()              # (B, S, 3)
     angles = pos[..., sec_of] * freqs                      # (B, S, half)
     cos = torch.cos(angles.double()).float()[:, :, None, :]

@@ -22,6 +22,7 @@ needs the cache.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -54,6 +55,7 @@ from repro_torch.core.strategy import StrategyConfig, paged_eligible
 from repro_torch.serving.kvstore import TierSpec
 from repro_torch.serving.request import Request
 from repro_torch.utils.timing import count, span
+from repro_torch.utils.trees import _leaves
 
 
 def _select_profile(controller: Optional[ServiceAwareController],
@@ -408,6 +410,116 @@ class PrefillWorker:
 
 
 # ---------------------------------------------------------------------------
+# The paged arena's one-token step at fixed addresses
+# ---------------------------------------------------------------------------
+class PagedStep:
+    """A decode worker's paged one-token step over static inputs.
+
+    The step reads the worker's host state through five fixed buffers,
+    in the arena call's order: block tables (n_slots, PPS) int32,
+    quant-resident lengths (n_slots,) int32, last tokens (n_slots, 1)
+    int32, positions (n_slots,) int32 and the live-slot mask (n_slots,)
+    bool.  Each is a host tensor (pinned on CUDA; ``host`` holds numpy
+    views of them for the worker to write) and a device tensor that
+    :meth:`stage` copies it into without a sync.
+
+    On a CUDA device :meth:`ready` captures the arena call once as one
+    CUDA graph and :meth:`run` replays it: the same kernels in the same
+    order on the same data, enqueued by one launch.  The graph bakes in
+    the addresses of the params, the pools and the buffers, so it is
+    tied to the tensors it captured (held by weak reference, so it does
+    not keep a released arena alive) and to the step function: when any
+    of them is rebound, :meth:`ready` captures again.  On the CPU the
+    step runs eagerly through the same buffers."""
+
+    WARMUP = 3      # eager runs on a side stream before a capture
+
+    def __init__(self, n_slots: int, pps: int, device):
+        self.device = torch.device(device)
+        pin = self.device.type == "cuda"
+        specs = (("bt", (n_slots, pps), torch.int32),
+                 ("quant_len", (n_slots,), torch.int32),
+                 ("tokens", (n_slots, 1), torch.int32),
+                 ("pos", (n_slots,), torch.int32),
+                 ("mask", (n_slots,), torch.bool))
+        self._host = [torch.zeros(shape, dtype=dt, pin_memory=pin)
+                      for _, shape, dt in specs]
+        self.dev = [torch.zeros(shape, dtype=dt, device=self.device)
+                    for _, shape, dt in specs]
+        self.host = {name: t.numpy()
+                     for (name, _, _), t in zip(specs, self._host)}
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Optional[torch.Tensor] = None
+        self._fn: Any = None
+        self._refs: List[Any] = []
+        self._launches: List[Tuple[Any, int]] = []
+
+    def stage(self) -> None:
+        """Copy the host buffers to the device, on the current stream."""
+        for dev, host in zip(self.dev, self._host):
+            dev.copy_(host, non_blocking=True)
+
+    def ready(self, fn, params, pool, qcodes, qscales) -> None:
+        """On CUDA, capture ``fn`` over these trees unless the graph
+        already holds exactly them."""
+        if self.device.type != "cuda":
+            return
+        leaves = list(_leaves((params, pool, qcodes, qscales)))
+        if (self.graph is not None and fn is self._fn
+                and len(leaves) == len(self._refs)
+                and all(r() is t for r, t in zip(self._refs, leaves))):
+            return
+        self._capture(fn, (params, pool, qcodes, qscales, *self.dev))
+        self._fn = fn
+        self._refs = [weakref.ref(t) for t in leaves]
+
+    def _capture(self, fn, args) -> None:
+        from repro_torch.kernels.ops import KERNEL_OPS
+
+        self.graph = self._out = None
+        with torch.cuda.device(self.device):
+            # Every row parked (mask False, block table 0): the warm-up's
+            # and the capture's scatters all land on the scratch page.
+            for t in self.dev:
+                t.zero_()
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    fn(*args)
+            main.wait_stream(side)
+            before = [op.launches for op in KERNEL_OPS]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out, pool = fn(*args)
+        if pool is not args[1]:
+            raise RuntimeError("the arena step rebound its pool; a graph "
+                               "of it cannot replay in place")
+        # A capture runs nothing: each wrapper's count of it is moved onto
+        # the replays, so a launch counter still counts what ran.
+        self._launches = [(op, op.launches - n)
+                          for op, n in zip(KERNEL_OPS, before)
+                          if op.launches != n]
+        for op, n in zip(KERNEL_OPS, before):
+            op.launches = n
+        self.graph, self._out = graph, out
+        count("decode_graph_capture", 1)
+
+    def run(self, fn, params, pool, qcodes, qscales):
+        """One step over the staged inputs: the graph's replay after
+        :meth:`ready` on CUDA, else ``fn`` itself.  Returns (next tokens
+        (n_slots,), pool)."""
+        if self.graph is None:
+            return fn(params, pool, qcodes, qscales, *self.dev)
+        self.graph.replay()
+        for op, n in self._launches:
+            op.launches += n
+        count("decode_graph_replay", 1)
+        return self._out, pool
+
+
+# ---------------------------------------------------------------------------
 # Decode worker
 # ---------------------------------------------------------------------------
 class DecodeWorker:
@@ -442,6 +554,9 @@ class DecodeWorker:
         # speculative slot first lands) and the verify step per width.
         self._draft: Any = None
         self._verify_fns: Dict[int, Any] = {}
+        # The paged one-token step's static inputs (and, on CUDA, its
+        # graph), built on the first paged step.
+        self._paged_step: Optional[PagedStep] = None
 
     @property
     def _pps(self) -> int:
@@ -493,8 +608,12 @@ class DecodeWorker:
         return self._dec_arena
 
     # ------------------------------------------------------------------
-    def _block_tables(self) -> np.ndarray:
-        bt = np.zeros((self.n_slots, self._pps), np.int32)
+    def _block_tables(self, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Every slot's block-table row, 0 past its owned pages (and
+        for a free slot), written over ``out`` when given."""
+        bt = np.empty((self.n_slots, self._pps), np.int32) if out is None \
+            else out
+        bt.fill(0)
         for s, owned in self.page_table.pages.items():
             bt[s, :len(owned)] = owned
         return bt
@@ -617,8 +736,9 @@ class DecodeWorker:
         token (DESIGN.md §15), 1..width tokens per slot.  Returns the
         measured wall seconds.  The one-token step is traced in four spans
         that tile it: ``prepare`` (page growth and the host state's copies
-        to the device), ``launch`` (the arena call's enqueue), ``pull``
-        (the token pull, the step's one sync) and ``commit``."""
+        to the device), ``launch`` (the arena call's enqueue: on a paged
+        arena on CUDA, the replay of its graph, :class:`PagedStep`),
+        ``pull`` (the token pull, the step's one sync) and ``commit``."""
         with span("decode_iteration"):
             count("decode_slots", len(active))
             proposals: Dict[int, List[int]] = {}
@@ -637,7 +757,7 @@ class DecodeWorker:
             dev = self.model.device
 
             def dev_t(a):
-                # lint: sync-ok(five host-state copies per decode step - CUDA-graph capture must stage them in pinned buffers)
+                # lint: sync-ok(the dense arena's three host-state copies a step; the paged step stages its inputs in pinned buffers)
                 return torch.as_tensor(a, device=dev)
 
             with span("prepare"):
@@ -653,18 +773,36 @@ class DecodeWorker:
                     for slot in active:
                         self.page_table.ensure(
                             slot.idx, int(self._positions[slot.idx]) + 1)
+                    step = self._paged_step
+                    if step is None:
+                        step = self._paged_step = PagedStep(
+                            self.n_slots, self._pps, dev)
+                    step.ready(dec, self.model.params, self._arena,
+                               self._qcodes, self._qscales)
                     t0 = time.perf_counter()
-                    state = (self._qcodes, self._qscales,
-                             dev_t(self._block_tables()),
-                             dev_t(self._quant_len),
-                             dev_t(self._last_tok[:, None]),
-                             dev_t(self._positions), dev_t(mask))
+                    # The host state goes through the step's pinned
+                    # buffers, copied without a sync.  Rewriting them is
+                    # safe: the previous step ended in its token pull, so
+                    # no copy out of them is still in flight.
+                    h = step.host
+                    self._block_tables(out=h["bt"])
+                    h["quant_len"][:] = self._quant_len
+                    h["tokens"][:, 0] = self._last_tok
+                    h["pos"][:] = self._positions
+                    h["mask"][:] = mask
+                    step.stage()
                 else:
                     t0 = time.perf_counter()
                     state = (dev_t(self._last_tok[:, None]),
                              dev_t(self._positions), dev_t(mask))
             with span("launch"):
-                nxt, self._arena = dec(self.model.params, self._arena, *state)
+                if self.cfg.paged:
+                    nxt, self._arena = step.run(
+                        dec, self.model.params, self._arena, self._qcodes,
+                        self._qscales)
+                else:
+                    nxt, self._arena = dec(self.model.params, self._arena,
+                                           *state)
             with span("pull"):
                 # lint: sync-ok(the step's single sanctioned sync - one batched pull)
                 nxt = np.asarray(nxt.cpu())

@@ -23,6 +23,8 @@ bit against numpy's ``x @ h`` on the host at D 64, 128 and 256 (one
 in-order FMA chain per output, a BLAS micro-kernel's order).  The kernels
 that split work across blocks (the attention kernels) are launched twice
 on their edge cases, and the two results must be equal bit for bit.
+A decode worker's paged one-token step replayed from its CUDA graph
+emits the plain step's tokens and writes its pages bit for bit.
 """
 import numpy as np
 import pytest
@@ -717,6 +719,58 @@ def test_family_runtime_launches_every_kernel(cuda, arch):
     for dw in rt.decode_workers:
         dw.page_table.check()
         assert dw.page_table.free_pages == dw.page_table.num_pages - 1
+
+
+@pytest.mark.parametrize("arch,seq", [("deepseek-moe-16b", 46),
+                                      ("gemma2-9b", 4096)])
+def test_paged_step_graph_replays_the_plain_step(cuda, arch, seq):
+    """A decode worker's one-token step, captured once as a CUDA graph and
+    replayed, against the plain ``_paged_steps`` arena call on copies of
+    the same pools (``test_torch_paged_step.held_to_plain_step``: joins,
+    a quant-resident landing, a parked slot, a release, page growth
+    across a boundary): tokens and every non-scratch page bit-equal at
+    each of the 20 steps.  Two-layer cuts at full width: deepseek's dense
+    layer and an MoE layer (64 experts top-6, 2 shared, 16 x 128 MHA);
+    gemma2's local layer (window 4096, crossed from step 0) and global
+    layer, cap 50.  One capture, one replay a step, and the replays add
+    the captured launches to the wrappers' counters; rebinding the params
+    or the pools captures again."""
+    import collections
+    import dataclasses
+
+    from repro_torch.configs import get_config, register
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.workers import PagedStep
+    from repro_torch.utils import timing
+    from test_torch_paged_step import STEPS, held_to_plain_step
+
+    cfg = register(dataclasses.replace(get_config(arch), name=f"{arch}-2l",
+                                       num_layers=2))
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    seen = []
+
+    def hook(dw, i, n):
+        assert dw._paged_step.graph is not None
+        seen.append(n)
+
+    tracer = timing.Tracer()
+    timing.install(tracer)
+    try:
+        dw = held_to_plain_step(cfg, params, cuda, seq, step_hook=hook)
+        dw.model.params = {k: v for k, v in params.items()}
+        dw.model.params["final_norm"] = {
+            k: t.clone() for k, t in params["final_norm"].items()}
+        dw.decode_iteration([])
+        dw._arena = None
+        dw.decode_iteration([])
+    finally:
+        timing.uninstall()
+    counts = collections.Counter()
+    for c in tracer.counts:
+        counts[c.name] += c.value
+    assert counts["decode_graph_capture"] == 3
+    assert counts["decode_graph_replay"] == STEPS + 2
+    assert seen == [(PagedStep.WARMUP + 1) * 2] + [2] * (STEPS - 1)
 
 
 def test_speculative_runtime_launches_the_verify_kernel(cuda):

@@ -10,9 +10,11 @@ Here each stage takes the time phase 6 measured on an H100 (prefill 76 ms
 and compress 58 ms under the virtual clock; a hit's landing 490 ms and a
 decode iteration 75 ms, charged by wrapping ``DecodeWorker.fetch_entry``
 and ``DecodeWorker.decode_iteration`` while ``decode_tok_s`` stays unset,
-as on the card), each scaled by 0.8 to 1.2.  Phase 6's gate must hold at
-every timing: a hit in a worker-local tier and one in the shared remote
-tier.
+as on the card), each scaled by 0.8 to 1.2.  Since the paged decode step
+became one replayed CUDA graph, phase 6 measures a decode iteration of
+13.3 ms on the card; the ``graph`` timings take that decode time instead,
+scaled likewise.  Phase 6's gate must hold at every timing: a hit in a
+worker-local tier and one in the shared remote tier.
 
 The second pass's remote hits do not depend on timing.  Every prompt's
 first request is a miss that writes it into a worker's tiers.  The two
@@ -42,6 +44,7 @@ from test_torch_workloads import phase6_events  # noqa: E402
 # Phase 6's stage times on the card (seconds); tiers hold as many entries
 # as its 256 and 128 MiB do of its 69.2 MB prefixes.
 PREFILL_S, COMPRESS_S, LANDING_S, DECODE_S = 0.076, 0.058, 0.490, 0.075
+DECODE_GRAPH_S = 0.0133     # a decode iteration replayed from its graph
 HOT_ENTRIES, DRAM_ENTRIES, PROMPTS = 3.88, 1.94, 11
 STAGES = ("prefill", "compress", "landing", "decode")
 # each stage alone at 0.8-1.2, and the corners of the three that set the
@@ -51,10 +54,15 @@ TIMINGS = ([dict.fromkeys(STAGES, 1.0)]
               for s in STAGES for f in (0.8, 0.9, 1.1, 1.2)]
            + [dict(prefill=p, compress=1.0, landing=l, decode=d)
               for p in (0.8, 1.2) for l in (0.8, 1.2) for d in (0.8, 1.2)])
+TIMINGS += ([dict(dict.fromkeys(STAGES, 1.0), decode=f, graph=True)
+             for f in (0.8, 0.9, 1.0, 1.1, 1.2)]
+            + [dict(prefill=p, compress=1.0, landing=l, decode=d, graph=True)
+               for p in (0.8, 1.2) for l in (0.8, 1.2) for d in (0.8, 1.2)])
 
 
 def _id(t):
-    return "-".join(f"{s}{t[s]:g}" for s in STAGES)
+    return "-".join(f"{s}{t[s]:g}" for s in STAGES) + (
+        "-graph" if t.get("graph") else "")
 
 
 def _tier_hits(rt):
@@ -77,7 +85,8 @@ def test_phase6_hits_both_tier_kinds_across_timings(timing, port_model,
 
     def decode_iteration(self, active):
         iterate(self, active)
-        return DECODE_S * timing["decode"]
+        base = DECODE_GRAPH_S if timing.get("graph") else DECODE_S
+        return base * timing["decode"]
 
     def fetch_entry(self, entry, idx):
         first, _ = land(self, entry, idx)
