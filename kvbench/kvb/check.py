@@ -10,22 +10,23 @@ reference, once the window has closed.
   gap is nonzero only where rounding moved the best token, so the mean
   grows with the square of the error, where the widest grows with the
   error and swings with the one near-tie it catches.
-* ``kv_rel_err``: for the same requests, the KV the wire payload carries
-  (decoded by the reference's own arithmetic) against the reference's
-  quantized KV, ||payload - reference|| / ||reference||, the largest over
-  the sample, in the first layer: its KV is the embedding's projection,
-  where the bf16 forward has not yet drifted from the f32 one, so the
-  number judges the wire and the codec.  Over every layer
-  (``kv_rel_err_all``, read beside it) the bf16 residual stream's drift
-  (about 6% by the last of deepseek-moe-16b's 28 layers) is a third of
-  the fp8 control's, too close for a limit between them; the served
-  tokens' gaps judge the layers after the first.
+* ``kv_rel_err``: for the same requests, the cache the wire payload
+  carries (decoded by the reference's own arithmetic) against the
+  reference's quantized cache, ||payload - reference|| / ||reference||
+  over the layer's parts together, the largest over the sample, in the
+  first layer: its cache is the embedding's projection, where the bf16
+  forward has not yet drifted from the f32 one, so the number judges the
+  wire and the codec.  Over every layer (``kv_rel_err_all``, read beside
+  it) the bf16 residual stream's drift (about 6% by the last of
+  deepseek-moe-16b's 28 layers) is a third of the fp8 control's, too
+  close for a limit between them; the served tokens' gaps judge the
+  layers after the first.
 * ``landed_mismatch``: sampled requests whose first layer, as the decode
-  worker landed it in its paged arena, differs from the payload decoded
-  by the reference's arithmetic by more than one bf16 step (2**-7 of the
-  value) anywhere: the arena stores bf16, so a sound landing rounds each
-  value once.  With ``kv_rel_err`` it holds the landed KV to the
-  reference's quantize-dequantize.  Its limit is 0.
+  worker landed it in its paged arena, differs in any part from the
+  payload decoded by the reference's arithmetic by more than one bf16
+  step (2**-7 of the value) anywhere: the arena stores bf16, so a sound
+  landing rounds each value once.  With ``kv_rel_err`` it holds the
+  landed cache to the reference's quantize-dequantize.  Its limit is 0.
 * ``wire_mismatch``: cold requests whose bytes on the wire, as the
   runtime sent and billed them, differ from the harness's own count of
   their payload, or whose ``comm`` differs from those bytes over the
@@ -34,9 +35,12 @@ reference, once the window has closed.
   given it, differs from the reference's ids of (workload, prompt
   seed).  Its limit is 0.
 
-With ``lowp`` the control reads too: the reference put in the program's
-place in fp8 (``reference.decoder``'s ``lowp``), on the same prompts and
-served tokens; its gap is that of the token it puts first.
+Everything that depends on the model's layout (the forward, the
+payload's decoding, the cache's parts) is the configuration's module's
+(``cell.model``; ``kvb.spec.load_model``).  With ``lowp`` the control
+reads too: the reference put in the program's place in fp8 (the
+module's ``forward`` with ``lowp``), on the same prompts and served
+tokens; its gap is that of the token it puts first.
 ``control_verdict`` holds its readings to the cell's limits of the same
 numbers.  A run that finished no request to compare reads NaN, which no
 limit passes."""
@@ -49,7 +53,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from reference import decoder, prompts, quant
+from reference import prompts
 
 GBPS = 1e9 / 8
 CHUNK = 8
@@ -90,10 +94,10 @@ def sample(window, probe, seed: int, n: int) -> List:
 
 
 def _landed_ok(arena, pay) -> bool:
-    """Whether the landed first layer ``arena`` ((K, V), (H, S, D) each)
-    is the decoded payload ``pay`` ((K, V), (L, H, S, D) f32) to one bf16
-    step."""
-    if arena is None:
+    """Whether the landed first layer ``arena`` (its parts, (H, S, W)
+    each) is the decoded payload ``pay`` (the parts, (L, H, S, W) f32) to
+    one bf16 step."""
+    if arena is None or len(arena) != len(pay):
         return False
     for got, want in zip(arena, pay):
         want = want[0]
@@ -103,6 +107,19 @@ def _landed_ok(arena, pay) -> bool:
         if bool((err > BF16_STEP * want.abs()).any()):
             return False
     return True
+
+
+def _add_sums(sums, layer: int, parts, pay) -> None:
+    """Add to ``sums`` (request, layer, 2) each request's squared error
+    and squared reference in ``layer``, over the cache's parts in order:
+    the reference's ``parts`` (B, S, H, W) each against the payloads'
+    ``pay`` (a request's parts, (L, H, S, W) each)."""
+    for b in range(parts[0].shape[0]):
+        for which, part in enumerate(parts):
+            want = pay[b][which][layer]
+            ref = part[b].transpose(0, 1)
+            sums[b, layer, 0] += float(((want - ref) ** 2).sum())
+            sums[b, layer, 1] += float((ref ** 2).sum())
 
 
 def _rel(sq) -> float:
@@ -126,7 +143,7 @@ def _gaps(first, rest, served, lens):
 
 def readings(cell, window, probe, params, served: Dict[int, np.ndarray],
              seed: int, device, lowp: bool = False) -> Dict[str, float]:
-    cfg = cell.config
+    cfg, model = cell.config, cell.model
     seq = cell.traffic["prompt_tokens"]
     out = {"wire_mismatch": float(wire_mismatches(
         window, probe, cell.cell["bandwidth_gbps"]))}
@@ -156,29 +173,24 @@ def readings(cell, window, probe, params, served: Dict[int, np.ndarray],
             cont[b, :len(t) - 1] = t[:-1]
         strategies = [asdict(probe.landed[r.rid].profile.strategy)
                       for r in part]
-        pay = [quant.payload_kv(probe.landed[r.rid].payload, device)
+        pay = [model.payload_parts(probe.landed[r.rid].payload, device)
                for r in part]
         bad_landed += sum(not _landed_ok(probe.landed[r.rid].arena, p)
                           for r, p in zip(part, pay))
-        # (request, layer) squared error and squared reference of K and V
+        # (request, layer) squared error and squared reference
         sums = np.zeros((len(part), cfg["num_layers"], 2))
-        ref_kv = {}
+        ref_parts = {}
 
-        def on_kv(layer, kq, vq, sums=sums, pay=pay, keep=ref_kv):
-            for b in range(kq.shape[0]):
-                for which, got in ((0, kq[b]), (1, vq[b])):
-                    want = pay[b][which][layer]
-                    ref = got.transpose(0, 1)
-                    sums[b, layer, 0] += float(((want - ref) ** 2).sum())
-                    sums[b, layer, 1] += float((ref ** 2).sum())
+        def on_kv(layer, parts, sums=sums, pay=pay, keep=ref_parts):
+            _add_sums(sums, layer, parts, pay)
             if lowp:
-                keep[layer] = (kq, vq)
+                keep[layer] = parts
 
         p_t = torch.as_tensor(np.stack(ids), dtype=torch.long, device=device)
         c_t = torch.as_tensor(cont, device=device)
         with torch.no_grad():
-            first, rest = decoder.forward(cfg, params, p_t, c_t, strategies,
-                                          on_kv=on_kv)
+            first, rest = model.forward(cfg, params, p_t, c_t, strategies,
+                                        on_kv=on_kv)
         gaps = _gaps(first, rest, toks, lens)
         tokens += sum(len(g) for g in gaps)
         gap_max = max(gap_max, max(max(g) for g in gaps))
@@ -188,17 +200,16 @@ def readings(cell, window, probe, params, served: Dict[int, np.ndarray],
         if lowp:
             csums = np.zeros((len(part), cfg["num_layers"], 2))
 
-            def on_kv_low(layer, kq, vq, csums=csums, keep=ref_kv):
-                rk, rv = keep.pop(layer)
-                for got, ref in ((kq, rk), (vq, rv)):
+            def on_kv_low(layer, parts, csums=csums, keep=ref_parts):
+                for got, ref in zip(parts, keep.pop(layer)):
                     csums[:, layer, 0] += ((got - ref) ** 2).sum(
                         dim=(1, 2, 3)).cpu().numpy()
                     csums[:, layer, 1] += (ref ** 2).sum(
                         dim=(1, 2, 3)).cpu().numpy()
 
             with torch.no_grad():
-                lf, lr = decoder.forward(cfg, params, p_t, c_t, strategies,
-                                         lowp=True, on_kv=on_kv_low)
+                lf, lr = model.forward(cfg, params, p_t, c_t, strategies,
+                                       lowp=True, on_kv=on_kv_low)
             picks = [[int(lf[b].argmax())]
                      + [int(lr[b, i].argmax()) for i in range(lens[b] - 1)]
                      for b in range(len(part))]

@@ -6,6 +6,7 @@ check against the reference, and the result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import sys
@@ -32,7 +33,8 @@ class Run:
     cell: spec.Cell
     window: Window
     probe: Probe
-    trace: Optional[object] = None
+    trace: Optional[object] = None      # the device trace's summary
+    spans: Optional[object] = None      # the port's tracer (kvb.spans)
 
 
 def forbidden_modules() -> List[str]:
@@ -47,13 +49,12 @@ def build_runtime(cell: spec.Cell, model_cfg, params, device):
     from repro_torch.core.profiles import load_profiles
     from repro_torch.serving import GBPS, BandwidthTrace, SchedulerConfig
     from repro_torch.serving.engine import RuntimeConfig, ServingRuntime
-    from reference import quant
 
     c, t = cell.cell, cell.traffic
     profiles = load_profiles(str(spec.profile_path(cell.root,
                                                    c["profiles"])))
     for p in profiles:
-        if not quant.supported(json.loads(p.strategy.to_json())):
+        if not cell.model.supported(json.loads(p.strategy.to_json())):
             raise ValueError(f"profile {p.strategy.short_name()} has no "
                              f"plain arithmetic in the reference")
     controller = ServiceAwareController(
@@ -75,25 +76,19 @@ def build_runtime(cell: spec.Cell, model_cfg, params, device):
     return rt, profiles
 
 
-def warm_up(torch, rt, profiles, device) -> None:
+def warm_up(torch, cell: spec.Cell, rt, profiles, device) -> None:
     """Every shape the cell's traffic uses, before the window: one request
     through the runtime (prefill at the prompt length, the controller's
     pick, the wire, landing, the decode step at the arena's width) and
-    each profile's compress and decompress at a request's KV shape."""
-    from repro_torch.core.pipeline import CompressionPipeline, DeviceKVCache
+    each profile's compress and decompress of a request-sized cache (the
+    configuration's module's ``warm_cache``)."""
+    from repro_torch.core import pipeline
 
     rt.submit("qalike", prompt_seed=(1 << 40) + 1, out_tokens=2)
     rt.run()
-    m = rt.model_cfg
-    shape = (m.num_layers, m.kv_heads, rt.cfg.seq, m.resolved_head_dim)
-    gen = torch.Generator(device=device).manual_seed(1)
-    kv = DeviceKVCache(
-        torch.randn(shape, generator=gen, device=device,
-                    dtype=torch.bfloat16),
-        torch.randn(shape, generator=gen, device=device,
-                    dtype=torch.bfloat16))
+    kv = cell.model.warm_cache(cell.config, rt.cfg.seq, device, pipeline)
     for p in profiles:
-        pipe = CompressionPipeline(p.strategy, device=device)
+        pipe = pipeline.CompressionPipeline(p.strategy, device=device)
         pipe.decompress(pipe.compress(kv))
     del kv
     if device.type == "cuda":
@@ -139,64 +134,98 @@ def per_layer(run: Run) -> Dict:
     return out
 
 
+@contextlib.contextmanager
+def port_tracer(on: bool):
+    """The port's tracer (``repro_torch.utils.timing.Tracer``) installed
+    for the block where ``on`` (a ``--trace 1`` run): yields it, or None
+    with nothing installed, and removes it when the block ends."""
+    if not on:
+        yield None
+        return
+    from repro_torch.utils import timing
+    tracer = timing.Tracer()
+    timing.install(tracer)
+    try:
+        yield tracer
+    finally:
+        timing.uninstall()
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device, t_proc0: float, bench_json: Path,
              root: Path = spec.BENCH_DIR, lowp: bool = False,
              log=print) -> Dict:
-    """The whole run; returns the result object (``correct`` and all)."""
+    """The whole run; returns the result object (``correct`` and all).
+
+    A ``--trace 1`` run installs the port's tracer before set-up, clears
+    it when the window opens and removes it with the probe, so its spans
+    and counters are the window's; a device trace on the host's clock
+    (``kvb.spans.ProgramTrace``) covers a sub-window.  A ``--trace 0``
+    run installs neither."""
     import torch
     from repro_torch.configs import get_config
-    from kvb import check
+    from kvb import check, spans
     from kvb.weights import make_params
 
     cell = spec.load_cell(workload, bench_json, root)
     spec.check_registry(cell.config)
     model_cfg = get_config(cell.config["registry"])
     device = torch.device(device)
-    params = make_params(model_cfg, seed, device)
-    rt, profiles = build_runtime(cell, model_cfg, params, device)
-    warm_up(torch, rt, profiles, device)
-    traffic = Traffic(cell.traffic, cell.cell, seed)
-    probe = Probe(cell.config, candidates(traffic, rt._next_rid))
-    probe.install()
-    tracer = None
-    try:
-        on_wall = None
-        if trace:
-            from kvb.tracing import DeviceTrace
-            tracer = DeviceTrace(torch)
-            state = {"on": False, "done": False, "t": 0.0}
+    with port_tracer(trace) as tracer:
+        params = make_params(model_cfg, seed, device, cell.model.init_scale)
+        rt, profiles = build_runtime(cell, model_cfg, params, device)
+        warm_up(torch, cell, rt, profiles, device)
+        traffic = Traffic(cell.traffic, cell.cell, seed)
+        probe = Probe(cell.config, cell.model,
+                      candidates(traffic, rt._next_rid))
+        probe.install()
+        dev_trace = None
+        try:
+            on_wall = None
+            if trace:
+                dev_trace = spans.ProgramTrace(torch, tracer)
+                state = {"on": False, "done": False, "t": 0.0}
 
-            def on_wall(frac):
-                if not state["on"] and not state["done"] \
-                        and frac >= TRACE_AT:
-                    tracer.start()
-                    probe.profiling = True
-                    state.update(on=True, t=time.perf_counter())
-                elif state["on"] and (time.perf_counter() - state["t"]
-                                      >= TRACE_SECONDS or frac >= 0.95):
-                    tracer.stop()
-                    probe.profiling = False
-                    state.update(on=False, done=True)
+                def on_wall(frac):
+                    if not state["on"] and not state["done"] \
+                            and frac >= TRACE_AT:
+                        dev_trace.start()
+                        probe.profiling = True
+                        state.update(on=True, t=time.perf_counter())
+                    elif state["on"] and (time.perf_counter() - state["t"]
+                                          >= TRACE_SECONDS or frac >= 0.95):
+                        dev_trace.stop()
+                        probe.profiling = False
+                        state.update(on=False, done=True)
 
-        w = Window(rt, traffic, seconds, cell.cell["q_min"],
-                   cell.cell.get("slo_metric"), on_wall=on_wall)
-        if traffic.closed:
-            w.ramp()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        setup_s = time.perf_counter() - t_proc0
-        w.run()
-        if trace and probe.profiling:
-            tracer.stop()
-            probe.profiling = False
-    finally:
-        probe.uninstall()
+            w = Window(rt, traffic, seconds, cell.cell["q_min"],
+                       cell.cell.get("slo_metric"), on_wall=on_wall)
+            if traffic.closed:
+                w.ramp()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            setup_s = time.perf_counter() - t_proc0
+            if tracer is not None:
+                tracer.clear()
+            w.run()
+            if trace and probe.profiling:
+                dev_trace.stop()
+                probe.profiling = False
+        finally:
+            probe.uninstall()
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
-    run = Run(cell, w, probe)
+    run = Run(cell, w, probe, spans=tracer)
+    extra = {"pace": {"steps": w.steps,
+                      "ms_per_step": w.wall / max(w.steps, 1) * 1e3}}
     if trace:
-        run.trace = tracer.summary(probe.host_spans)
+        run.trace = dev_trace.summary(probe.host_spans)
+        extra.update(
+            program_spans={n: r(run) for n, r in spans.READERS.items()},
+            agreement=spans.agreement(run), span_ms=spans.span_ms(run),
+            alignment=dev_trace.alignment)
+        log(f"spans beside the probe and the breakdown: "
+            f"{json.dumps(extra['agreement'])}")
     metrics = per_layer(run) if trace else end_to_end(cell, w, setup_s)
     served = {r.rid: r.tokens for r in rt.completed}
     due = w.due_in_window()
@@ -253,6 +282,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             "correct": bool(c_ok),
             "checks": {k: {"value": v, "limit": lim}
                        for k, (v, lim) in c_shown.items()}}
+    result.update(extra)
     result["readings"] = {k: v for k, v in values.items()
                           if k not in limits}
     result["checks"] = {k: {"value": v, "limit": lim}

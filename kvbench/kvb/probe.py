@@ -24,58 +24,17 @@ class Landed:
     rid: int
     profile: Any = None           # the controller's Profile
     payload: Any = None           # the wire payload (kept for candidates)
-    arena: Any = None             # first layer's (K, V) as landed in the
-                                  # decode arena, (H, S, D) each (candidates)
+    arena: Any = None             # first layer's cache parts as landed in
+                                  # the decode arena (candidates)
     own_bytes: Optional[int] = None   # the harness's count of the payload
     sent: List[float] = field(default_factory=list)   # KVWire.send bytes
     prompt: Any = None            # the prompt ids the prefill was given
 
 
-def payload_bytes(comp) -> int:
-    """Wire bytes of a payload by the harness's own arithmetic: payload
-    bytes, 2 a bucket's (layer, head) index entry, 2 an fp16 scale or
-    zero point, 4 a token index, no transform metadata (the profile sets
-    hold no transform), and a 64-byte header."""
-    if comp.identity_payload is not None:
-        return len(comp.identity_payload) + 64
-    if comp.k_ctx.get("kind") != "none" or comp.v_ctx.get("kind") != "none":
-        raise ValueError("a payload with transform metadata")
-    total = 64
-    for w in comp.k_buckets + comp.v_buckets:
-        total += len(w.payload) + w.lh_index.size * 2
-        for meta, per in ((w.scale, 2), (w.zp, 2), (w.token_index, 4)):
-            if meta is not None:
-                total += meta.size * per
-    return total
-
-
-def landed_first_layer(dw, idx: int, seq: int) -> tuple:
-    """The first layer's K and V of arena slot ``idx``, positions below
-    ``seq``, as (H, S, D) device tensors: the pages the slot's block row
-    names, gathered (a copy, so later reuse of the pages cannot change
-    it).  The first attention layer is the prefix's ``layer0`` where the
-    model has a prefix, else block 0 of ``layer0``."""
-    import numpy as np
-    import torch
-
-    page = dw.cfg.page_size
-    n = -(-seq // page)
-    tree = dw._arena
-    leaf = tree["prefix"].get("layer0")
-    row = np.asarray(dw.page_table.block_row(idx, dw._pps))[:n]
-    out = []
-    for key in ("k", "v"):
-        buf = leaf[key] if leaf is not None else tree["blocks"]["layer0"][key][0]
-        rows = torch.as_tensor(row, dtype=torch.long, device=buf.device)
-        pages = buf[rows]                       # (n, page, H, D)
-        out.append(pages.reshape(n * page, *pages.shape[2:])[:seq]
-                   .transpose(0, 1))
-    return tuple(out)
-
-
 class Probe:
-    def __init__(self, cfg: Dict, candidates: Set[int] = frozenset()):
-        self.cfg = cfg
+    def __init__(self, cfg: Dict, model, candidates: Set[int] = frozenset()):
+        self.model = model                  # the configuration's module
+        self.sizes = model.sizes(cfg)
         self.candidates = set(candidates)   # rids whose payload is kept
         self.spans: Dict[str, List[float]] = defaultdict(list)
         self.landed: Dict[int, Landed] = {}
@@ -124,7 +83,7 @@ class Probe:
                 out = real(pw, req, tokens)
                 probe._span("prefill", t0, time.perf_counter())
                 probe.prefill_flops += counts.prefill_flops(
-                    probe.cfg, len(tokens))
+                    probe.sizes, len(tokens))
                 land = probe.landed.setdefault(req.rid, Landed(req.rid))
                 if req.rid in probe.candidates:
                     land.prompt = list(int(t) for t in tokens)
@@ -139,7 +98,7 @@ class Probe:
                 comp, _, _, profile, _ = out
                 land = probe.landed.setdefault(req.rid, Landed(req.rid))
                 land.profile = profile
-                land.own_bytes = payload_bytes(comp)
+                land.own_bytes = probe.model.payload_bytes(comp)
                 if req.rid in probe.candidates:
                     land.payload = comp
                 return out
@@ -150,7 +109,7 @@ class Probe:
                 out = real(dw, kv, idx)
                 rid = probe._current
                 if rid in probe.candidates and dw.cfg.paged:
-                    probe.landed[rid].arena = landed_first_layer(
+                    probe.landed[rid].arena = probe.model.landed_parts(
                         dw, idx, int(kv.seq))
                 return out
             return wrapped
@@ -178,15 +137,15 @@ class Probe:
                 out = real(dw, active)
                 probe._span("decode_iteration", t0, time.perf_counter())
                 probe.decode_flops += counts.decode_step_flops(
-                    probe.cfg, [c + 1 for c in ctx])
+                    probe.sizes, [c + 1 for c in ctx])
                 probe.decode_tokens += len(active)
                 if probe.profiling and dw.cfg.paged:
                     probe.traced_bytes["paged_attention"] += \
                         counts.paged_attention_bytes(
-                            probe.cfg, ctx, qlen, dw.n_slots, dw._pps,
+                            probe.sizes, ctx, qlen, dw.n_slots, dw._pps,
                             dw.cfg.page_size)
                     probe.traced_calls["paged_attention"] += \
-                        probe.cfg["num_layers"]
+                        probe.sizes["attn_layers"]
                 return out
             return wrapped
 

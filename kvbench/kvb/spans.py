@@ -10,9 +10,11 @@ arrays land), and a ``decode_iteration`` span whose children ``prepare``,
 ``launch``, ``pull`` and ``commit`` tile it; and the counters
 ``to_host_bytes``, ``to_device_bytes`` and ``decode_slots``.
 
+The harness installs the tracer in ``--trace 1`` runs alone, clears it
+when the window opens and removes it after (``kvb.harness.port_tracer``).
 A reader takes the harness's ``Run`` and finds the tracer at
-``run.spans``; where there is none (a program without the tracer, or a
-harness that does not install it) it returns None."""
+``run.spans``; where there is none (a ``--trace 0`` run) it returns
+None, and so does a reader whose spans the program never recorded."""
 from __future__ import annotations
 
 import json
@@ -24,8 +26,7 @@ from statistics import mean
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from kvb.layers import started
-from kvb.tracing import DEVICE_CATS, MARKER, DeviceTrace, TraceSummary, \
-    short_name
+from kvb.tracing import DEVICE_CATS, MARKER, TraceSummary, short_name
 from kvb.window import quantile
 
 CODEC_HOST = ("to_host", "encode")
@@ -221,14 +222,17 @@ def span_ms(run) -> Dict[str, float]:
 
 
 # -- the device trace on the host's clock ----------------------------------
-class ProgramTrace(DeviceTrace):
-    """A :class:`DeviceTrace` whose sub-window is bracketed by two marker
-    kernels, each launched right after a ``perf_counter_ns`` read, so the
-    trace's clock can be put on the host's; its idle gaps are named by
-    the program span open at each gap's start."""
+class ProgramTrace:
+    """The traced sub-window: ``torch.profiler`` with CUDA activity only,
+    so the host pays for no operator records, started and stopped around
+    part of a window (``summary`` after the stop).  It is bracketed by two
+    marker kernels, each launched right after a ``perf_counter_ns`` read,
+    so the trace's clock can be put on the host's; its idle gaps are
+    named by the program span open at each gap's start."""
 
     def __init__(self, torch, tracer):
-        super().__init__(torch)
+        self.torch = torch
+        self.prof = None
         self.tracer = tracer
         self.marks: List[Tuple[int, int]] = []  # (ns before, ns after)
         self.t_stop_ns = 0
@@ -244,7 +248,6 @@ class ProgramTrace(DeviceTrace):
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.__enter__()
         self.torch.cuda.synchronize()
-        self.t_start = time.perf_counter()
         self.marks = []
         self._mark()
 
@@ -252,7 +255,6 @@ class ProgramTrace(DeviceTrace):
         self._mark()
         self.torch.cuda.synchronize()
         self.t_stop_ns = time.perf_counter_ns()
-        self.t_stop = self.t_stop_ns * 1e-9
         self.prof.__exit__(None, None, None)
 
     def summary(self, host_spans) -> TraceSummary:
@@ -317,6 +319,9 @@ def summarize(events, marks, t_stop_ns: int, tracer, host_spans
                      short_name(e["name"])) for e in events
                     if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
                     and MARKER not in e["name"]), key=lambda s: s[0])
+    if not spans:
+        raise RuntimeError("the profiler's trace holds no device operation "
+                           "besides the markers")
     kernel_s: Dict[str, float] = defaultdict(float)
     merged: List[List[float]] = []
     for a, b, name in spans:

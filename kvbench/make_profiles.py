@@ -36,7 +36,7 @@ def main(name: str, out_dir: str) -> int:
     from repro_torch.core.strategy import StrategyConfig
     from repro_torch.launch.profile_offline import build_profiles
     from repro_torch.models.transformer import prefill
-    from kvb.spec import BENCH_DIR, check_registry
+    from kvb.spec import BENCH_DIR, check_registry, load_model
     from kvb.weights import make_params
     from reference.prompts import prompt_ids
 
@@ -45,7 +45,8 @@ def main(name: str, out_dir: str) -> int:
     cfg = get_config(config["registry"])
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    params = make_params(cfg, WEIGHT_SEED, dev)
+    params = make_params(cfg, WEIGHT_SEED, dev,
+                         load_model(BENCH_DIR, config).init_scale)
     samples = []
     for i, w in enumerate(WORKLOADS[:2]):
         ids = torch.as_tensor(prompt_ids(w, 1000 + i, SAMPLE_SEQ)[None],

@@ -23,11 +23,19 @@ file's equations:
 continuation sees what the serving path's decode saw.  ``lowp`` rounds
 both operands of every product to fp8 e4m3 (per-tensor scale): the
 benchmark's control.
+
+This file is the module of the configurations whose ``"reference"`` key
+names it (``kvb.spec.load_model`` lists what a module provides).  Their
+cache has two parts a layer, K and V, each (Hkv, S, D) a request; the
+wire payload, its byte count and the check of a profile's arithmetic are
+``quant``'s.  The helpers that read or build the program's own objects
+(``landed_parts``, ``warm_cache``) import nothing of it: the harness hands
+them the objects.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -148,11 +156,11 @@ def _f32(tree):
 
 def forward(cfg: Dict, params, prompts: torch.Tensor, cont: torch.Tensor,
             strategies: Sequence[Dict], lowp: bool = False,
-            on_kv: Optional[Callable[[int, torch.Tensor, torch.Tensor],
+            on_kv: Optional[Callable[[int, Tuple[torch.Tensor, ...]],
                                      None]] = None):
     """prompts (B, S0) and served tokens cont (B, S1) int64 on the weights'
     device.  Returns (first-token logits (B, V), logits after each served
-    token (B, S1, V)), float32.  ``on_kv(layer, k, v)`` receives each
+    token (B, S1, V)), float32.  ``on_kv(layer, (k, v))`` receives each
     layer's prompt KV after the request's profile, (B, S0, Hkv, D)."""
     P = Plain(lowp)
     dev = prompts.device
@@ -184,7 +192,7 @@ def forward(cfg: Dict, params, prompts: torch.Tensor, cont: torch.Tensor,
         kq = torch.stack([quant.qdq(k0[r], strategies[r]) for r in range(b)])
         vq = torch.stack([quant.qdq(v0[r], strategies[r]) for r in range(b)])
         if on_kv is not None:
-            on_kv(i, kq, vq)
+            on_kv(i, (kq, vq))
         a1 = attention(P, q1, torch.cat([kq, k1], 1), torch.cat([vq, v1], 1),
                        pos1, pos_all)
         x0 = x0 + P.ein("bshk,hkd->bsd", a0, mx["wo"])
@@ -207,3 +215,103 @@ def forward(cfg: Dict, params, prompts: torch.Tensor, cont: torch.Tensor,
     first = P.ein("bd,dv->bv", rmsnorm(x0[:, -1], fn, eps), w)
     rest = P.ein("bsd,dv->bsv", rmsnorm(x1, fn, eps), w)
     return first, rest
+
+
+# -- the rest of the module's contract ---------------------------------------
+supported = quant.supported
+payload_parts = quant.payload_kv
+payload_bytes = quant.payload_bytes
+
+
+def landed_parts(dw, idx: int, seq: int) -> tuple:
+    """The first layer's K and V of decode worker ``dw``'s arena slot
+    ``idx``, positions below ``seq``, as (H, S, D) device tensors: the
+    pages the slot's block row names, gathered (a copy, so later reuse of
+    the pages cannot change it).  The first attention layer is the
+    prefix's ``layer0`` where the model has a prefix, else block 0 of
+    ``layer0``."""
+    import numpy as np
+
+    page = dw.cfg.page_size
+    n = -(-seq // page)
+    tree = dw._arena
+    leaf = tree["prefix"].get("layer0")
+    row = np.asarray(dw.page_table.block_row(idx, dw._pps))[:n]
+    out = []
+    for key in ("k", "v"):
+        buf = leaf[key] if leaf is not None else tree["blocks"]["layer0"][key][0]
+        rows = torch.as_tensor(row, dtype=torch.long, device=buf.device)
+        pages = buf[rows]                       # (n, page, H, D)
+        out.append(pages.reshape(n * page, *pages.shape[2:])[:seq]
+                   .transpose(0, 1))
+    return tuple(out)
+
+
+def warm_cache(cfg: Dict, seq: int, device, pipeline):
+    """A request's KV at ``seq`` positions, (L, Hkv, S, D) bf16 K and V
+    drawn on ``device``, as the program's ``pipeline.DeviceKVCache``: what
+    set-up compresses and decompresses once a profile."""
+    shape = (cfg["num_layers"], cfg["kv_heads"], seq, cfg["head_dim"])
+    gen = torch.Generator(device=device).manual_seed(1)
+    return pipeline.DeviceKVCache(
+        torch.randn(shape, generator=gen, device=device,
+                    dtype=torch.bfloat16),
+        torch.randn(shape, generator=gen, device=device,
+                    dtype=torch.bfloat16))
+
+
+def sizes(cfg: Dict) -> Dict[str, int]:
+    """The counts ``kvb.counts`` sums, from the configuration file:
+
+    * ``weights_per_token``: weights one token multiplies by in one
+      forward: attention projections, the MLP or the router, its k routed
+      experts and the shared ones, and the unembedding (the embedding is
+      a lookup); ``unembed`` the unembedding's share;
+    * ``attn_layers``; per attention layer, ``attn_flops_per_position``,
+      QK and PV of one query against one cached position,
+      ``cache_elems_per_position``, the elements a position holds (K and
+      V), ``query_elems_per_slot``, a decoding slot's query read and
+      output written, and ``stat_elems_per_slot``, its f32 statistics
+      (m and l a head)."""
+    d, h, hkv, hd = (cfg["d_model"], cfg["num_heads"], cfg["kv_heads"],
+                     cfg["head_dim"])
+    f = cfg["d_ff"]
+    attn = d * h * hd + 2 * d * hkv * hd + h * hd * d
+    n = 0
+    for i in range(cfg["num_layers"]):
+        n += attn
+        if cfg.get("num_experts", 0) and i >= cfg.get("moe_dense_prefix", 0):
+            n += d * cfg["num_experts"]
+            n += cfg["experts_per_token"] * 3 * d * f
+            n += 3 * d * f * cfg.get("num_shared_experts", 0)
+        else:
+            n += 3 * d * f
+    unembed = d * cfg["vocab_size"]
+    return {"weights_per_token": n + unembed, "unembed": unembed,
+            "attn_layers": int(cfg["num_layers"]),
+            "attn_flops_per_position": 4 * h * hd,
+            "cache_elems_per_position": 2 * hkv * hd,
+            "query_elems_per_slot": 2 * h * hd,
+            "stat_elems_per_slot": 2 * h}
+
+
+QKV = ("wq", "wk", "wv")
+
+
+def init_scale(path: Tuple[str, ...], shape: Tuple[int, ...]) -> float:
+    """The standard deviation ``kvb.weights`` draws the leaf at ``path``
+    (of the port's parameter tree, shape ``shape``) with: 1 for the token
+    table, 0 (zeros) for the RMSNorm scales, else 1/sqrt(fan-in), the
+    fan-in of a routed expert's matrix and of a stacked block leaf taken
+    without its leading axis."""
+    name = path[-1]
+    if name == "tok":
+        return 1.0
+    if name in ("scale", "q_norm", "k_norm"):
+        return 0.0
+    core = shape[1:] if path[0] == "blocks" else shape
+    if "mlp" in path and name in ("wi_gate", "wi_up", "wo") \
+            and len(core) == 3:
+        core = core[1:]                     # a routed expert's matrix
+    fan_in = core[0] if name in QKV else math.prod(core[:-1])
+    return 1.0 / math.sqrt(fan_in)

@@ -1,6 +1,6 @@
 """What a KV profile does to the KV, in plain arithmetic: the quantize
 and dequantize of every strategy a frozen profile set may hold, and a
-decoder of the wire payload.  A strategy outside these raises, so a
+decoder and byte count of the wire payload.  A strategy outside these raises, so a
 profile set that grows past them fails the run instead of passing a
 comparison it never made."""
 from __future__ import annotations
@@ -86,3 +86,22 @@ def payload_kv(payload, device) -> tuple:
         full[lh[:, 0], lh[:, 1]] = vals
         out.append(full)
     return out[0], out[1]
+
+
+def payload_bytes(payload) -> int:
+    """Wire bytes of a payload by the harness's own arithmetic: payload
+    bytes, 2 a bucket's (layer, head) index entry, 2 an fp16 scale or
+    zero point, 4 a token index, no transform metadata (the profile sets
+    hold no transform), and a 64-byte header."""
+    if payload.identity_payload is not None:
+        return len(payload.identity_payload) + 64
+    if payload.k_ctx.get("kind") != "none" \
+            or payload.v_ctx.get("kind") != "none":
+        raise ValueError("a payload with transform metadata")
+    total = 64
+    for w in payload.k_buckets + payload.v_buckets:
+        total += len(w.payload) + w.lh_index.size * 2
+        for meta, per in ((w.scale, 2), (w.zp, 2), (w.token_index, 4)):
+            if meta is not None:
+                total += meta.size * per
+    return total

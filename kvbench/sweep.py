@@ -7,7 +7,7 @@ second of cluster clock) a fresh runtime, warmed, drives a window of
 ``seconds`` and reports the backlog (requests due with no first token
 yet) at each quarter of the window's cluster time, with TTFT p90.  The
 knee is the highest rate whose backlog does not grow over the window."""
-import copy
+import dataclasses
 import json
 import sys
 import time
@@ -29,12 +29,11 @@ def main(workload, seconds, seed, rates) -> int:
     cell = spec.load_cell(workload, ROOT / "BENCHMARK.json")
     model_cfg = get_config(cell.config["registry"])
     dev = torch.device("cuda")
-    params = make_params(model_cfg, seed, dev)
+    params = make_params(model_cfg, seed, dev, cell.model.init_scale)
     for rate in rates:
-        c = copy.deepcopy(cell)
-        c.cell["rate_per_s"] = rate
+        c = dataclasses.replace(cell, cell=dict(cell.cell, rate_per_s=rate))
         rt, profiles = build_runtime(c, model_cfg, params, dev)
-        warm_up(torch, rt, profiles, dev)
+        warm_up(torch, c, rt, profiles, dev)
         w = Window(rt, Traffic(c.traffic, c.cell, seed), seconds,
                    c.cell["q_min"], c.cell.get("slo_metric"))
         w.run()

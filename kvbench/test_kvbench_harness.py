@@ -145,19 +145,25 @@ def test_traffic_gives_every_seed_the_same_schedule_and_its_own_prompts():
 
 
 def test_counts_by_hand():
-    qwen = json.loads((spec.BENCH_DIR / "configs/qwen3-4b.json").read_text())
+    """The yardstick's sums over the shipped configurations' module's
+    counts (``reference/decoder.py::sizes``)."""
+    def sizes(name):
+        cfg = json.loads((spec.BENCH_DIR / "configs" / f"{name}.json")
+                         .read_text())
+        return spec.load_model(spec.BENCH_DIR, cfg).sizes(cfg)
+
+    qwen = sizes("qwen3-4b")
     attn = 2560 * 32 * 128 * 2 + 2 * 2560 * 8 * 128
     per_layer = attn + 3 * 2560 * 9728
-    assert counts.matmul_params_per_token(qwen) == \
+    assert qwen["weights_per_token"] == \
         36 * per_layer + 2560 * 151936 == 4_022_272_000
-    ds = json.loads((spec.BENCH_DIR /
-                     "configs/deepseek-moe-16b.json").read_text())
+    ds = sizes("deepseek-moe-16b")
     attn = 4 * 2048 * 16 * 128
     moe = 2048 * 64 + 6 * 3 * 2048 * 1408 + 3 * 2048 * 1408 * 2
-    assert counts.matmul_params_per_token(ds) == (
+    assert ds["weights_per_token"] == (
         28 * attn + 3 * 2048 * 1408 + 27 * moe + 2048 * 102400)
     # two slots at contexts 10 and 20: weights twice, QK + PV over 30
-    p = counts.matmul_params_per_token(qwen)
+    p = qwen["weights_per_token"]
     assert counts.decode_step_flops(qwen, [10, 20]) == \
         2 * (2 * p) + 4 * 32 * 128 * 36 * 30
     assert counts.prefill_flops(qwen, 3) == \
@@ -165,7 +171,10 @@ def test_counts_by_hand():
         + 4 * 32 * 128 * 36 * 6
     assert counts.quant_pack_bytes(2, 128, 8, 64, 2) == 2 * 128 * 3 + 16
     assert counts.quant_pack_bytes(2, 128, 4, 32, 4) == 2 * 128 * 4.5 + 32
-    tiny = {"kv_heads": 2, "head_dim": 4, "num_heads": 4, "num_layers": 3}
+    from reference import decoder
+    tiny = decoder.sizes({"kv_heads": 2, "head_dim": 4, "num_heads": 4,
+                          "num_layers": 3, "d_model": 8, "d_ff": 8,
+                          "vocab_size": 16})
     # one slot: 6 positions, 2 of them quant-resident; 2 slots in the arena
     per_layer = (2 * 2 * 4 * (5 * 2 + 2 * 4) + 2 * 2 * 4 * 16 * 2
                  + 2 * 4 * 4 * 2 * 2 + 2 * 4 * 4 * 2 + 2 * (5 + 2) * 4)
@@ -189,6 +198,19 @@ def test_a_width_that_disagrees_with_the_registry_fails_the_run(tmp_path):
     with pytest.raises(ValueError, match="d_model"):
         run_cell("tiny.pd", 1, 0.5, False, "cpu", 0.0,
                  root / "BENCHMARK.json", root)
+
+
+@pytest.mark.parametrize("key,value", [("sliding_window", 4096),
+                                       ("d_model", 96)])
+def test_a_key_that_disagrees_with_the_registry_fails(key, value):
+    """Every key of the file that names a field of the port's
+    ``ModelConfig`` is held, those outside the widths and equations the
+    reference reads too."""
+    cfg = json.loads((spec.BENCH_DIR / "configs" / "deepseek-moe-16b.json")
+                     .read_text())
+    spec.check_registry(dict(cfg, sliding_window=0))
+    with pytest.raises(ValueError, match=key):
+        spec.check_registry(dict(cfg, **{key: value}))
 
 
 def test_shipped_configurations_match_the_registry():

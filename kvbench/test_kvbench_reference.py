@@ -109,7 +109,7 @@ def test_forward_agrees_with_the_port_at_a_tiny_size(arch):
          "experts_per_token": cfg.experts_per_token,
          "capacity_factor": cfg.capacity_factor, "qk_norm": cfg.qk_norm,
          "rope_theta": cfg.rope_theta, "rmsnorm_eps": cfg.rmsnorm_eps}
-    params = make_params(cfg, 5, "cpu")
+    params = make_params(cfg, 5, "cpu", decoder.init_scale)
     ids = torch.as_tensor(prompts.prompt_ids("qalike", 5, 32)[None],
                           dtype=torch.int32)
     logits, caches = prefill(cfg, params, {"tokens": ids}, 40)

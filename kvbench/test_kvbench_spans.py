@@ -1,6 +1,8 @@
 """The readers of the port's spans (``kvb.spans``) on made-up runs, the
 device trace's idle gaps named by program span, its alignment to the
-host's clock, and ``traced.py``'s run of a tiny cell on the CPU."""
+host's clock, and the harness's traced and untraced runs of a tiny cell
+on the CPU (``run_cell``): the port's tracer in ``--trace 1`` runs
+alone."""
 from types import SimpleNamespace
 
 import pytest
@@ -198,42 +200,13 @@ def test_idle_gaps_are_named_by_the_innermost_program_span(made_up):
     assert al["unlabeled_s"] == pytest.approx(0.040, abs=1e-5)
 
 
-def test_traced_run_installs_clears_and_removes_the_tracer(tmp_path):
-    import traced
-    from repro_torch.utils import timing
-    from kvb.probe import Probe
-    from kvb.window import Window
-
-    root = tinybench.build(tmp_path)
-    real_run, real_uninstall = Window.run, Probe.uninstall
-    seen = {}
-
-    def spy(w):
-        seen["tracer"] = timing.installed()
-        seen["at_open"] = len(seen["tracer"].spans)
-        return real_run(w)
-
-    Window.run = spy
-    try:
-        res = traced.traced_run("tiny.pd", 20260418, 1.5, False, True,
-                                device="cpu", log=lambda s: None,
-                                bench_json=root / "BENCHMARK.json",
-                                root=root)
-    finally:
-        Window.run = real_run
-    assert seen["at_open"] == 0         # cleared when the window opened
-    names = {s.name for s in seen["tracer"].spans}
-    assert {"step", "start", "decode_iteration"} <= names
-    assert timing.installed() is None
-    assert Window.run is real_run and Probe.uninstall is real_uninstall
-    assert res["correct"] and res["tracer"]
-
-
 class StubTrace:
     """``spans.ProgramTrace`` without the profiler: its two marks are
     host reads, and its trace is made up on a clock 5,000 us ahead of
     the host's, with each marker's launch record 2 us after its read and
-    one kernel over the first tenth of the sub-window."""
+    one kernel from the sub-window's start to the middle of the first
+    ``step`` inside it (else over its first tenth), so that the idle gap
+    after the kernel starts inside a program span."""
 
     def __init__(self, torch, tracer):
         self.tracer, self.marks, self.alignment = tracer, [], {}
@@ -253,27 +226,87 @@ class StubTrace:
     def summary(self, host_spans):
         off = 5000.0
         a, b = (m[0] / 1e3 for m in self.marks)
+        mids = [(s.t0_ns + s.t1_ns) / 2e3 for s in self.tracer.spans
+                if s.name == "step" and a < s.t0_ns / 1e3
+                and 0 < s.t1_ns / 1e3 < b]
+        end = mids[0] if mids else a + (b - a) / 10
         ev = [_kernel(MARKER, a + off + 8, 1, 1), _launch(a + off + 2, 1),
-              _kernel("gemm", a + off + 20, (b - a) / 10, 2),
+              _kernel("gemm", a + off + 20, end - a - 20, 2),
               _kernel(MARKER, b + off + 8, 1, 3), _launch(b + off + 2, 3)]
         out, self.alignment = spans.summarize(ev, self.marks, self.t_stop_ns,
                                               self.tracer, host_spans)
         return out
 
 
+def _spy_on_the_window(monkeypatch):
+    """What the tracer held when the window opened, and whether the probe
+    was still installed when the tracer was removed."""
+    from repro_torch.serving import workers
+    from repro_torch.utils import timing
+    from kvb.window import Window
+
+    seen = {"uninstalled_with_probe": None}
+    real_run, real_uninstall = Window.run, timing.uninstall
+    real_iteration = workers.DecodeWorker.decode_iteration
+
+    def run(w):
+        seen["tracer"] = timing.installed()
+        seen["at_open"] = (None if seen["tracer"] is None
+                           else len(seen["tracer"].spans))
+        return real_run(w)
+
+    def uninstall():
+        seen["uninstalled_with_probe"] = (
+            workers.DecodeWorker.decode_iteration is not real_iteration)
+        return real_uninstall()
+
+    monkeypatch.setattr(Window, "run", run)
+    monkeypatch.setattr(timing, "uninstall", uninstall)
+    return seen
+
+
+def _tiny(root, seed, seconds, trace):
+    from kvb.harness import run_cell
+    return run_cell("tiny.pd", seed, seconds, trace, "cpu", 0.0,
+                    root / "BENCHMARK.json", root, log=lambda s: None)
+
+
+def test_traced_run_installs_clears_and_removes_the_tracer(
+        tmp_path, monkeypatch):
+    """``--trace 1``: the port's tracer is installed before set-up (the
+    warm-up's spans are in it), cleared when the window opens and
+    removed once the probe is; ``--trace 0`` installs none."""
+    from repro_torch.utils import timing
+    from repro_torch.serving import workers
+
+    monkeypatch.setattr(spans, "ProgramTrace", StubTrace)
+    real_iteration = workers.DecodeWorker.decode_iteration
+    root = tinybench.build(tmp_path)
+    seen = _spy_on_the_window(monkeypatch)
+    res = _tiny(root, 20260418, 1.5, True)
+    assert seen["at_open"] == 0         # cleared when the window opened
+    names = {s.name for s in seen["tracer"].spans}
+    assert {"step", "start", "decode_iteration"} <= names
+    assert seen["uninstalled_with_probe"] is False
+    assert timing.installed() is None
+    assert workers.DecodeWorker.decode_iteration is real_iteration
+    assert res["correct"] and "program_spans" in res
+    seen = _spy_on_the_window(monkeypatch)
+    res = _tiny(root, 20260419, 1.5, False)
+    assert seen["tracer"] is None and seen["uninstalled_with_probe"] is None
+    assert res["correct"] and "program_spans" not in res
+
+
 def test_traced_run_reads_the_spans_in_a_traced_run(tmp_path, monkeypatch):
-    """``--trace 1`` through ``traced.py`` on the CPU, the profiler
-    stubbed: the harness reaches every patch, and the result carries
-    every reader's value, the agreement, the alignment, and idle gaps
+    """``--trace 1`` through the harness on the CPU, the profiler stubbed:
+    the result carries every reader's value, the eight span metrics among
+    the per-layer metrics, the agreement, the alignment, and idle gaps
     named by program span."""
-    import traced
     from repro_torch.utils import timing
 
     monkeypatch.setattr(spans, "ProgramTrace", StubTrace)
     root = tinybench.build(tmp_path)
-    res = traced.traced_run("tiny.pd", 3000000019, 1.5, True, True,
-                            device="cpu", log=lambda s: None,
-                            bench_json=root / "BENCHMARK.json", root=root)
+    res = _tiny(root, 3000000019, 1.5, True)
     assert timing.installed() is None
     assert set(res["program_spans"]) == set(spans.READERS)
     for name in ("select_ms_p50", "codec_host_ms_p50",
@@ -281,6 +314,8 @@ def test_traced_run_reads_the_spans_in_a_traced_run(tmp_path, monkeypatch):
                  "to_device_mb_per_start", "decode_host_ms",
                  "decode_pull_ms", "decode_live_slots"):
         assert res["program_spans"][name] > 0, name
+    for name in set(spans.READERS) - {"to_device_mb_per_start"}:
+        assert res["metrics"][name]["value"] == res["program_spans"][name]
     assert res["agreement"]["decode_iteration_ms"] > 0
     assert res["agreement"]["iteration_cover_min"] > 0
     assert res["alignment"]["source"] == "launch"
@@ -295,18 +330,21 @@ def test_traced_run_reads_the_spans_in_a_traced_run(tmp_path, monkeypatch):
     assert res["alignment"]["unlabeled_s"] == pytest.approx(
         sum(gaps.values()) - sum(named.values()))
     assert res["pace"]["steps"] > 0 and res["correct"]
+    assert list(res)[-1] == "checks"
 
 
-def test_traced_run_fails_where_the_harness_skips_its_patches(
+def test_a_traced_run_whose_program_records_no_span_reports_no_span_metric(
         tmp_path, monkeypatch):
-    import traced
-    from kvb import harness
+    """Where the port's tracer never reaches the program (here: installing
+    it does nothing), the span readers find nothing, and the harness
+    leaves their metrics out of the line rather than reading 0."""
     from repro_torch.utils import timing
 
-    monkeypatch.setattr(harness, "run_cell", lambda *a, **k: {})
-    with pytest.raises(RuntimeError, match="Window.run"):
-        traced.traced_run("tiny.pd", 1, 1.0, True, True, device="cpu",
-                          log=lambda s: None,
-                          bench_json=tmp_path / "BENCHMARK.json",
-                          root=tmp_path)
+    monkeypatch.setattr(spans, "ProgramTrace", StubTrace)
+    monkeypatch.setattr(timing, "install", lambda tracer: None)
+    root = tinybench.build(tmp_path)
+    res = _tiny(root, 1, 1.0, True)
+    assert all(v is None for v in res["program_spans"].values())
+    assert not set(spans.READERS) & set(res["metrics"])
+    assert "decode_iter_ms" in res["metrics"]
     assert timing.installed() is None

@@ -1,7 +1,7 @@
 """A tiny benchmark root for the CPU tests: the port's reduced
 deepseek-moe-16b (2 layers, d_model 64, 8 experts top-2), 64-token
 prompts, a made-up set of an int8 and an int4 profile, the real metric
-readers."""
+readers and reference module."""
 from __future__ import annotations
 
 import json
@@ -20,10 +20,13 @@ def build(root: Path, closed: bool = False, rate: float = 20.0,
 
     for d in ("configs", "cells", "traffic", "profiles"):
         (root / d).mkdir(parents=True, exist_ok=True)
-    if not (root / "metrics").exists():
-        shutil.copytree(HERE / "metrics", root / "metrics")
+    for d in ("metrics", "reference"):
+        if not (root / d).exists():
+            shutil.copytree(HERE / d, root / d,
+                            ignore=shutil.ignore_patterns("__pycache__"))
     c = get_config("deepseek-moe-16b-reduced")
     cfg = {"name": "tiny", "source": "test", "registry": c.name,
+           "reference": "reference/decoder.py",
            "num_layers": c.num_layers,
            "d_model": c.d_model if d_model is None else d_model,
            "num_heads": c.num_heads, "kv_heads": c.kv_heads,
