@@ -42,6 +42,10 @@ is caught:
    slots (kv_len 0: m = -inf, l = 0, out = 0 in the kernel and its plain
    version); and each arena entry's two CUDA kernels (phase A, phase B)
    are timed by torch.profiler, at gemma2's shape windowed and not.
+   ``paged_mla_attention`` (deepseek-v2-lite's absorbed decode read) at
+   the MLA cell's shape: 16 slots of up to 8,336 positions, one parked,
+   against its plain version, launched twice and bit-equal, timed beside
+   its bound and by its two CUDA kernels' device time.
    With ``--baseline DIR`` (a checkout of another commit, e.g. the
    parent's ``git archive``), the arena attention entries (also by
    device time, and their outputs held bit-equal to DIR's),
@@ -143,7 +147,12 @@ is caught:
    view printed beside it), one step's times and top kernels, cold TTFT
    stages, peak memory; then a two-layer cut at full width served with
    the two-model draft (``spec_k=4``), which must launch the verify entry
-   with the cap and the window.
+   with the cap and the window; (d) ``deepseek-v2-lite`` at full width
+   and depth (27 layers of multi-head latent attention), served as phase
+   3 serves: every request completes, page tables drain, pool hits land
+   as bf16 latent pages, ``paged_mla_attention`` launches (and the MHA
+   arena entry does not), one decode step through it against the plain
+   path (phase 3's gate), peak memory.
 
 9. The multi-card path: (a) ``python -m repro_torch.launch.dryrun`` in
    processes of their own (the fake 512-rank group), started after (b)
@@ -184,7 +193,7 @@ the simulator's gap, phase 7's training and transfer numbers, phase 8's
 serving run and per-family checks, phase 9's report rows beside the
 card's times and the restore, phase 10's tables, seconds and launches,
 one JSON line of kernel results (with each kernel's launches in phases
-6, 7, 8a, 8c and 10),
+6, 7, 8a, 8c, 8d and 10; ``paged_mla_attention``'s main path is 8d's),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Exits
 with an error, printing no result, when there is no CUDA device or the
@@ -807,6 +816,122 @@ def kernel_phase(torch, dev):
                 *pargs, bits=bits, group=GROUP), iters=5))
     results["paged_attention"]["pallas_interface"] = pallas
     return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, continued: multi-head latent attention's decode read
+# ---------------------------------------------------------------------------
+# The MLA cell's decode step (kvbench's dsv2lite.pd_cold8k.2gbps):
+# deepseek-v2-lite's 16 heads over one latent (512) and rope key (64) a
+# position, 16 slots of 521 pages of 16 (8,336 positions: an 8,192-token
+# prompt and up to 128 output tokens).
+MLA_ARCH, MLA_SLOTS, MLA_PPS = "deepseek-v2-lite", 16, 521
+
+
+def mla_case(torch, dev, gen):
+    """paged_mla_attention_op's inputs at the MLA cell's shape: random
+    bf16 latent and rope pools over MLA_SLOTS * MLA_PPS + 1 pages (page 0
+    the scratch page), a permuted block table, kv_lens from the whole
+    view down to 1,024, the last row parked (a stale length, its table
+    all the scratch page), bf16 absorbed and rope queries and the
+    configuration's softmax scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import mla_softmax_scale
+
+    cfg = get_config(MLA_ARCH)
+    h, r, pr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    b, n_pages = MLA_SLOTS, MLA_SLOTS * MLA_PPS + 1
+    bf16 = torch.bfloat16
+    lat = torch.randn((n_pages, PAGE_SIZE, 1, r), generator=gen,
+                      device=dev).to(bf16)
+    rope = (torch.randn((n_pages, PAGE_SIZE, 1, pr), generator=gen,
+                        device=dev) * 2).to(bf16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm.reshape(b, MLA_PPS).to(torch.int32)
+    bt[-1] = 0
+    lens = torch.linspace(MLA_PPS * PAGE_SIZE, 1024, b,
+                          device=dev).round().to(torch.int32)
+    q_abs = (torch.randn((b, h, r), generator=gen, device=dev)
+             * 0.05).to(bf16)
+    q_pe = (torch.randn((b, h, pr), generator=gen, device=dev)
+            * 0.05).to(bf16)
+    return q_abs, q_pe, lat, rope, bt, lens, mla_softmax_scale(cfg)
+
+
+def mla_close(torch, got, want):
+    """(out's bf16 ulps where it differs from ``want``'s by more than 1e-4
+    of the largest l, m relative error, l relative error) of two
+    ``(out, m, l)`` of paged_mla_attention, and whether they are within
+    the card tests' tolerances (2 ulps, 1e-5, 1e-4)."""
+    (out, m, l), (r_out, r_m, r_l) = got, want
+    ulps, _ = bf16_close(torch, out, r_out, atol=1e-4 * float(r_l.max()))
+    m_rel, l_rel = rel_err(torch, m, r_m), rel_err(torch, l, r_l)
+    return ulps, m_rel, l_rel, ulps <= 2 and m_rel <= 1e-5 and l_rel <= 1e-4
+
+
+def mla_kernel_phase(torch, dev):
+    """paged_mla_attention_op at the MLA cell's shape (``mla_case``)
+    against its plain version at the card tests' tolerances: m within
+    1e-5 relative, l within 1e-4, out within 2 bf16 ulps where it differs
+    by more than 1e-4 of the largest l; the parked row m = -inf, l = 0,
+    out = 0; two launches bit-equal.  Times the op, its plain version and
+    its two CUDA kernels' device time, beside the bound of the bytes and
+    f32 operations this data needs.  Returns the kernel's results
+    entry."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    args = mla_case(torch, dev, gen)
+    q_abs, q_pe, lat, rope, bt, lens, _ = args
+    out, m, l = ops.paged_mla_attention_op(*args)
+    r_out = ref.paged_mla_attention_ref(*args)[0]
+    again = ops.paged_mla_attention_op(*args)
+    same = all(torch.equal(x, y) for x, y in zip((out, m, l), again))
+    ulps, m_rel, l_rel, held = mla_close(
+        torch, (out, m, l), ref.paged_mla_attention_ref(*args))
+    parked = bool(torch.all(m[-1] == float("-inf")) and torch.all(l[-1] == 0)
+                  and torch.all(out[-1] == 0))
+    b, h, r = q_abs.shape
+    pr = q_pe.shape[-1]
+    print(f"paged_mla_attention B={b} H={h} R={r} P={pr} pages="
+          f"{lat.shape[0]}x{PAGE_SIZE} kv_lens={lens.tolist()} (row {b - 1} "
+          f"parked): out {ulps} bf16 ulps (tolerance 2), m rel {m_rel:.3g} "
+          f"(1e-5), l rel {l_rel:.3g} (1e-4), parked row empty: {parked}, "
+          f"two launches bit-equal: {same}")
+    check(held and parked and same,
+          "paged_mla_attention vs plain at the MLA cell's shape")
+    # what this data needs: each seen position's latent and rope key once
+    # (the parked row sees none), the queries, out, m, l and the tables;
+    # per seen position and head, scores over R + P and values over R
+    seen = int(lens[:-1].long().sum())
+    nbytes = (seen * (r + pr) * 2 + (q_abs.numel() + q_pe.numel()) * 2
+              + out.numel() * 2 + (m.numel() + l.numel()) * 4
+              + bt.numel() * 4 + lens.numel() * 4)
+    flops = 2 * h * (r + pr + r) * seen
+    def fn():
+        return ops.paged_mla_attention_op(*args)
+
+    dev_t = device_times(torch, fn)
+    check(set(dev_t["by_kernel"]) == {"mla_decode_partial",
+                                      "mla_decode_combine"},
+          f"paged_mla_attention's CUDA kernels: {sorted(dev_t['by_kernel'])}")
+    entry = dict(max_abs_err=float((out.float() - r_out.float()).abs().max()),
+                 ms=time_ms(torch, fn),
+                 plain_ms=time_ms(torch, lambda: ref.paged_mla_attention_ref(
+                     *args), iters=5),
+                 library_ms=None, device_ms=dev_t["device_ms"],
+                 device_by_kernel=dev_t["by_kernel"],
+                 host_ms=dev_t["host_ms"],
+                 kernels_per_call=dev_t["kernels_per_call"],
+                 bytes=nbytes, flops=flops)
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops)
+    print(f"paged_mla_attention at the MLA cell's shape: {entry['ms']:.4f} "
+          f"ms, device {entry['device_ms']:.4f} ms "
+          f"({', '.join(f'{k} {v:.4f}' for k, v in dev_t['by_kernel'].items())}"
+          f"), bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), share of the "
+          f"bound {entry['bound_ms'] / entry['device_ms']:.3f}")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -2307,19 +2432,22 @@ def baseline_codec_check(torch, dev, cfg, params, rt, baseline: Path):
 def reference_check(torch, rt, cfg, params, dev):
     """One full-width decode step of a served prompt on the card, from the
     wire-restored KV resident in the paged arena as bf16 pages and as
-    int8 quant pages: through the Hopper kernel, and through its plain
-    version (same arithmetic order, so the logits should agree to the
-    last bits).  Also prints the dense-cache path (cuBLAS attention,
-    another summation order) for information.  Returns (max |logit
-    difference| kernel vs plain, logit scale, plain top-2 gap, argmaxes
-    agree)."""
+    int8 quant pages (MLA's latent layout: bf16 pages alone, as it
+    lands): through the Hopper kernel (``paged_attention_arena`` or, for
+    MLA, ``paged_mla_attention``), and through its plain version (same
+    arithmetic order, so the logits should agree to the last bits).  Also
+    prints the dense-cache path (cuBLAS attention, another summation
+    order) for information.  Returns (max |logit difference| kernel vs
+    plain, logit scale, plain top-2 gap, argmaxes agree)."""
     import repro_torch.models.layers as layers
+    from repro_torch.configs.base import is_mla
     from repro_torch.core.kvcache import PageTable
     from repro_torch.core.pipeline import CompressionPipeline
     from repro_torch.core.quality import (
         _paged_caches, _prompts_for, extract_kv, init_paged_pools, inject_kv,
         inject_kv_paged, inject_quant_pages)
     from repro_torch.kernels import ref
+    from repro_torch.core.strategy import quant_resident
     from repro_torch.models.transformer import decode_step, init_cache, prefill
     from repro_torch.serving.workers import quant_entry_arrays
 
@@ -2343,7 +2471,12 @@ def reference_check(torch, rt, cfg, params, dev):
     table.ensure(0, seq + 1)
     row = table.block_row(0, pps)
     bt = torch.as_tensor(row[None], device=dev)
-    (kc, ks), (vc, vs) = quant_entry_arrays(comp)
+    layouts = [(0, "bf16 pages")]
+    if quant_resident(comp):
+        (kc, ks), (vc, vs) = quant_entry_arrays(comp)
+        layouts.append((seq, "int8 pages"))
+    entry = ("paged_mla_attention" if is_mla(cfg)
+             else "paged_attention_arena")
 
     def paged_logits(quant_len):
         pool, qc, qs = init_paged_pools(cfg, pps + 1, page_size, 1,
@@ -2358,14 +2491,14 @@ def reference_check(torch, rt, cfg, params, dev):
         return decode_step(cfg, params, paged, tok, pos)[0][0, -1].float()
 
     err, scale, gap, same = 0.0, 0.0, float("inf"), True
-    for quant_len, where in ((0, "bf16 pages"), (seq, "int8 pages")):
+    for quant_len, where in layouts:
         kernel = paged_logits(quant_len)
-        kernel_op = layers.paged_attention_arena_op
-        layers.paged_attention_arena_op = ref.paged_attention_arena_ref
+        kernel_op = getattr(layers, entry + "_op")
+        setattr(layers, entry + "_op", getattr(ref, entry + "_ref"))
         try:
             plain = paged_logits(quant_len)
         finally:
-            layers.paged_attention_arena_op = kernel_op
+            setattr(layers, entry + "_op", kernel_op)
         top = torch.topk(plain, 2).values
         e = float((kernel - plain).abs().max())
         err, scale = max(err, e), max(scale, float(plain.abs().max()))
@@ -3592,6 +3725,92 @@ def gemma2_serving_phase(torch, dev):
     return total
 
 
+def mla_serving_phase(torch, dev):
+    """8d: phase 3's serving run with ``deepseek-v2-lite`` at full width
+    and depth (27 layers of multi-head latent attention, 64 routed experts
+    top-6 and 2 shared, a dense first layer 10,944 wide): requests,
+    drained page tables, the pool hits landed as bf16 latent pages, the
+    launches of ``paged_mla_attention`` (the arena's decode read, in the
+    replayed graph; ``paged_attention_arena`` none) and of ``quant_pack``
+    and ``dequant_unpack``, and the peak memory.  One decode step of a
+    served prompt from its wire-restored latent pages through the kernel:
+    each layer's read is held against its plain version on the same
+    inputs at the card tests' tolerances (``mla_close``).  The step's
+    logits against the plain path's are printed, not held: the kernel
+    sums in another order than its plain version (within 2 ulps), and
+    with seeded weights a last-bit change of a layer's output flips a
+    near-tied top-6 expert choice in a later layer, which moves the
+    logits by O(1) (phase 8b's routing flips; the benchmark holds the
+    served tokens to the f32 reference).  Returns the launch counts of
+    the run."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, params = model_setup(torch, dev, MLA_ARCH)
+    print(f"phase 8d: {MLA_ARCH}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads over a {cfg.kv_lora_rank} "
+          f"latent and a {cfg.qk_rope_head_dim} rope key, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token} + "
+          f"{cfg.num_shared_experts} shared, vocab {cfg.vocab_size}")
+    rt, wall, counts = serve(torch, dev, cfg, params)
+    print_requests(rt, wall)
+    check_runtime(rt, cfg)
+    for dw in rt.decode_workers:
+        check(not dw._quant_len.any(), "phase 8d: no quant-resident pages")
+    launched = {k: counts[op] for k, op in (
+        ("quant_pack", "quant_pack_op"), ("dequant_unpack", "dequant_unpack_op"),
+        ("paged_mla_attention", "paged_mla_attention_op"),
+        ("paged_attention", "paged_attention_arena_op"))}
+    print(f"launches on the phase 8d path: {launched}")
+    for k in ("quant_pack", "dequant_unpack", "paged_mla_attention"):
+        check(launched[k] > 0, f"{k} launched in phase 8d")
+    check(launched["paged_attention"] == 0,
+          "phase 8d: no MHA arena read on the MLA path")
+    release_arenas(torch, rt)
+    import repro_torch.models.layers as layers
+    from repro_torch.kernels import ref
+
+    kernel_op, moe, held, routed = (layers.paged_mla_attention_op,
+                                    layers.apply_moe, [], [])
+
+    def recorded(*args):
+        got = kernel_op(*args)
+        held.append(mla_close(torch, got, ref.paged_mla_attention_ref(*args)))
+        return got
+
+    def recording(p, c, x):       # one-token steps: dense, kernel, plain
+        if x.shape[1] == 1:
+            routed.append((p, x.clone()))
+        return moe(p, c, x)
+
+    layers.paged_mla_attention_op, layers.apply_moe = recorded, recording
+    try:
+        reference_check(torch, rt, cfg, params, dev)
+    finally:
+        layers.paged_mla_attention_op, layers.apply_moe = kernel_op, moe
+    n = len(routed) // 3
+    flips = _routing_flips(torch, cfg, {"forward": routed[2 * n:],
+                                        "decode": routed[n:2 * n]})
+    print(f"phase 8d: routing flips of the step, kernel against plain path "
+          f"(layer, experts only the plain path chose, only the kernel's, "
+          f"router logit margin in bf16 ulps): {flips}")
+    worst = [max(h[i] for h in held) for i in range(3)]
+    print(f"phase 8d: {len(held)} layers' paged_mla_attention reads of the "
+          f"step against their plain versions on the same inputs: out "
+          f"{worst[0]} bf16 ulps at most (tolerance 2), m rel {worst[1]:.3g} "
+          f"(1e-5), l rel {worst[2]:.3g} (1e-4)")
+    check(len(held) == cfg.num_layers and all(h[3] for h in held),
+          "phase 8d: every layer's MLA kernel read agrees with the plain "
+          "version")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"phase 8d: peak memory {peak:.2f} GiB; "
+          f"{time.perf_counter() - t0:.2f} s wall")
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _bf16_ulps_apart(a: float, b: float) -> float:
     """|a - b| in bf16 ulps of the larger magnitude."""
     m = max(abs(a), abs(b))
@@ -4209,6 +4428,7 @@ def main(argv) -> int:
     results.update(quant_kernel_phase(torch, dev))
     results["paged_verify_attention"] = verify_kernel_phase(torch, dev)
     results["hadamard"], host_exact = hadamard_kernel_phase(torch, dev)
+    results["paged_mla_attention"] = mla_kernel_phase(torch, dev)
     results["decode_attention"], decode_launches = \
         decode_attention_kernel_phase(torch, dev)
     print(f"launches on the decode_attention path (phase 2's cases): "
@@ -4319,7 +4539,8 @@ def main(argv) -> int:
              "paged_attention": "paged_attention_arena_op",
              "paged_verify_attention": "paged_verify_attention_arena_op",
              "hadamard": "hadamard_op",
-             "decode_attention": "decode_attention_op"}
+             "decode_attention": "decode_attention_op",
+             "paged_mla_attention": "paged_mla_attention_op"}
     phase6 = {k: counts[op] for k, op in op_of.items()}
 
     # ---- 7. training, checkpoints and the cross-pod paths ----
@@ -4349,6 +4570,9 @@ def main(argv) -> int:
     counts = gemma2_serving_phase(torch, dev)
     phase8c = {k: counts[op] for k, op in op_of.items()}
     print(f"launches on the phase 8c path: {phase8c}")
+    counts = mla_serving_phase(torch, dev)
+    phase8d = {k: counts[op] for k, op in op_of.items()}
+    launches["paged_mla_attention"] = phase8d["paged_mla_attention"]
     print(f"phase 8: {time.perf_counter() - t8:.2f} s wall")
 
     # ---- 9. the multi-card path: the H100 cost report, elastic restore ----
@@ -4395,6 +4619,8 @@ def main(argv) -> int:
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:137"),
+        "paged_mla_attention": (
+            "src/repro_torch/kernels/csrc/paged_mla_attention.cu", None),
     }
     launches["decode_attention"] = decode_launches
     kernels = []
@@ -4404,6 +4630,7 @@ def main(argv) -> int:
                  "phase6_launches": phase6[k], "phase7_launches": phase7[k],
                  "phase8_launches": phase8[k],
                  "phase8c_launches": phase8c[k],
+                 "phase8d_launches": phase8d[k],
                  "phase10_launches": phase10[k]}
         entry.update(results[k])
         kernels.append(entry)

@@ -87,6 +87,22 @@ DEEPSEEK_MOE_16B = register(ModelConfig(
     moe_dense_prefix=1,
 ))
 
+# deepseek-v2-lite [moe] 27L d_model=2048 16H, multi-head latent attention
+#   (kv_lora_rank 512, no q_lora, qk 128 + rope 64, v 128; YaRN factor 40
+#   over 4096 positions), 2 shared + 64 routed top-6 of width 1408 with
+#   un-normalised weights, a dense first layer of width 10944, vocab 102400
+#   [hf:deepseek-ai/DeepSeek-V2-Lite]
+DEEPSEEK_V2_LITE = register(ModelConfig(
+    name="deepseek-v2-lite", family="moe", num_layers=27, d_model=2048,
+    num_heads=16, kv_heads=16, d_ff=1408, vocab_size=102400,
+    kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+    v_head_dim=128, yarn_factor=40.0, yarn_original_max_position=4096,
+    yarn_beta_fast=32.0, yarn_beta_slow=1.0, yarn_mscale=0.707,
+    yarn_mscale_all_dim=0.707,
+    moe=True, num_experts=64, experts_per_token=6, num_shared_experts=2,
+    moe_dense_prefix=1, dense_d_ff=10944, norm_topk_prob=False,
+))
+
 # falcon-mamba-7b [ssm] 64L d_model=4096 (attn-free) vocab=65024 ssm_state=16
 FALCON_MAMBA_7B = register(ModelConfig(
     name="falcon-mamba-7b", family="ssm", num_layers=64, d_model=4096,

@@ -27,6 +27,22 @@ class ModelConfig:
     rope_theta: float = 10000.0
     mrope: bool = False              # qwen2-vl 3-section M-RoPE
 
+    # multi-head latent attention (deepseek-v2): kv_lora_rank > 0 turns it
+    # on; a layer caches the normed latent (width kv_lora_rank) and the
+    # rotated rope key (width qk_rope_head_dim), one head each
+    kv_lora_rank: int = 0
+    q_lora_rank: Optional[int] = None    # query compression (None: none)
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN RoPE scaling (yarn_factor 0: plain RoPE)
+    yarn_factor: float = 0.0
+    yarn_original_max_position: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
     # MLP / MoE
     moe: bool = False
     num_experts: int = 0
@@ -34,6 +50,8 @@ class ModelConfig:
     num_shared_experts: int = 0
     moe_period: int = 1              # MoE layer every `moe_period` layers
     moe_dense_prefix: int = 0        # first k layers use dense MLP (deepseek)
+    dense_d_ff: int = 0              # their width (0: d_ff)
+    norm_topk_prob: bool = True      # renormalise the top-k router weights
     capacity_factor: float = 1.25
     moe_impl: str = "einsum"         # einsum (GShard dispatch) | sort
 
@@ -82,6 +100,12 @@ class ModelConfig:
         layers = self.num_layers + (self.enc_layers if self.encoder_decoder else 0)
         attn_params = d * (self.num_heads * hd) + 2 * d * (self.kv_heads * hd) \
             + (self.num_heads * hd) * d
+        if is_mla(self):
+            h, r = self.num_heads, self.kv_lora_rank
+            nope, rope, vd = (self.qk_nope_head_dim, self.qk_rope_head_dim,
+                              self.v_head_dim)
+            attn_params = (d * h * (nope + rope) + d * (r + rope) + r
+                           + r * h * (nope + vd) + h * vd * d)
         for i in range(layers):
             if self._layer_kind(i) == "ssm":
                 di, s, r = self.d_inner, self.ssm_state, self.dt_rank
@@ -98,7 +122,7 @@ class ModelConfig:
                     n += self.num_experts * 3 * d * self.d_ff
                     n += self.num_shared_experts * 3 * d * self.d_ff
                 else:
-                    n += 3 * d * self.d_ff
+                    n += 3 * d * mlp_width(self)
         return int(n)
 
     def active_param_count(self) -> int:
@@ -155,6 +179,30 @@ class ModelConfig:
             if all(b == blocks[0] for b in blocks):
                 return period
         return 0  # irregular — no scan
+
+
+# The model code also takes the JAX package's ModelConfig (tests bridge its
+# weights into the port), which has none of the fields below the JAX
+# package's: these read them with the defaults that keep its behaviour.
+def is_mla(cfg) -> bool:
+    """Whether ``cfg``'s attention is multi-head latent attention."""
+    return getattr(cfg, "kv_lora_rank", 0) > 0
+
+
+def cache_parts(cfg) -> Tuple[str, str]:
+    """Names of an attention layer's two cache parts, kept under the cache
+    keys "k" and "v": K and V, or MLA's latent and rope key."""
+    return ("latent", "rope") if is_mla(cfg) else ("k", "v")
+
+
+def mlp_width(cfg) -> int:
+    """Width of a dense (non-expert) layer's MLP."""
+    return getattr(cfg, "dense_d_ff", 0) or cfg.d_ff
+
+
+def norm_topk_prob(cfg) -> bool:
+    """Whether the router renormalises its top-k weights."""
+    return getattr(cfg, "norm_topk_prob", True)
 
 
 @dataclass(frozen=True)
@@ -218,4 +266,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         dec_seq=16 if cfg.encoder_decoder else cfg.dec_seq,
         attn_period=cfg.attn_period,
         attn_offset=min(cfg.attn_offset, max(cfg.attn_period - 1, 0)),
+        dense_d_ff=192 if cfg.dense_d_ff else 0,
+        **(dict(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                v_head_dim=16) if is_mla(cfg) else {}),
     )

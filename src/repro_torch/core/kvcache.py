@@ -3,7 +3,9 @@ the page-table bookkeeping for the paged decode arena (DESIGN.md §12).
 
 Layout: ``k, v : (num_layers, kv_heads, seq, head_dim)`` float32 arrays that
 *logically* represent bf16 wire data (2 bytes/elem), matching the paper's
-BF16 baseline accounting.
+BF16 baseline accounting.  The two parts may differ in width alone: a
+multi-head latent attention model's ``k`` is the latent (L, 1, S,
+kv_lora_rank) and its ``v`` the rope key (L, 1, S, qk_rope_head_dim).
 """
 from __future__ import annotations
 
@@ -18,15 +20,20 @@ from repro_torch.core.strategy import SCALE_BYTES, SOURCE_BYTES
 @dataclass
 class KVCache:
     k: np.ndarray  # (L, H, S, D)
-    v: np.ndarray  # (L, H, S, D)
+    v: np.ndarray  # (L, H, S, Dv): Dv = D but for MLA's rope key
 
     def __post_init__(self):
-        assert self.k.shape == self.v.shape, (self.k.shape, self.v.shape)
-        assert self.k.ndim == 4
+        assert self.k.shape[:3] == self.v.shape[:3], (self.k.shape,
+                                                      self.v.shape)
+        assert self.k.ndim == 4 and self.v.ndim == 4
 
     @property
     def shape(self):
         return self.k.shape
+
+    @property
+    def v_shape(self):
+        return self.v.shape
 
     @property
     def num_layers(self) -> int:
@@ -43,6 +50,10 @@ class KVCache:
     @property
     def head_dim(self) -> int:
         return self.k.shape[3]
+
+    @property
+    def v_head_dim(self) -> int:
+        return self.v.shape[3]
 
     def nbytes_wire(self) -> int:
         """Bytes of the uncompressed payload on the wire (logical bf16)."""

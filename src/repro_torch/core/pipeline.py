@@ -22,6 +22,16 @@ rotated tensor straight to ``quant_pack``, any other pulls it to the host
 for the numpy quantizer; a pipeline given a ``device`` inverts it there.
 The wire form is the host path's byte for byte; every other strategy
 takes the numpy stages.
+
+The two parts of a cache (:class:`KVCache` ``k`` and ``v``) go through
+every stage part by part, each at its own width: K under ``key_bits`` and
+V under ``value_bits``, or for multi-head latent attention the latent
+(``k``) under ``key_bits`` and the rope key (``v``) under ``value_bits``.
+A per-token group wider than a part quantizes it as one group a token
+(the host quantizer pads the group with the part's last channel, which
+moves no group max): the group clamped to the part's width.  The device
+stages take a strategy only where its group tiles both parts, so the
+latent layout's 128-channel groups (rope key 64 wide) take the host path.
 """
 from __future__ import annotations
 
@@ -88,6 +98,12 @@ class CompressedKV:
     k_ctx: Dict[str, Any]
     v_ctx: Dict[str, Any]
     identity_payload: Optional[bytes] = None  # bypass path
+    v_shape: Optional[Tuple[int, int, int, int]] = None  # None: ``shape``
+
+    @property
+    def v_dims(self) -> Tuple[int, int, int, int]:
+        """The second part's shape (MLA's rope key is narrower)."""
+        return tuple(self.shape if self.v_shape is None else self.v_shape)
 
     # ------------------------------------------------------------------
     def payload_bytes(self) -> int:
@@ -106,7 +122,8 @@ class CompressedKV:
         return self.payload_bytes() + self.meta_bytes()
 
     def original_bytes(self) -> int:
-        return int(np.prod(self.shape)) * 2 * SOURCE_BYTES
+        return (int(np.prod(self.shape))
+                + int(np.prod(self.v_dims))) * SOURCE_BYTES
 
     def compression_ratio(self) -> float:
         return self.original_bytes() / max(self.total_bytes(), 1)
@@ -225,6 +242,12 @@ def _rotate(x: torch.Tensor, pad_dim: int) -> torch.Tensor:
         x.shape[:-1] + (pad_dim,))
 
 
+def _v_shape(shape, v_shape) -> Optional[Tuple[int, int, int, int]]:
+    """``CompressedKV.v_shape``: None where both parts have one shape, so
+    an MHA payload is what it was before parts could differ."""
+    return None if tuple(v_shape) == tuple(shape) else tuple(v_shape)
+
+
 # ---------------------------------------------------------------------------
 def _encode_quantized(qt: QuantizedTensor, codec: str) -> List[_BucketWire]:
     out = []
@@ -277,15 +300,17 @@ class CompressionPipeline:
         self.head_scores = head_scores
         self.device = device
 
-    def _on_device(self, head_dim: int) -> bool:
-        return paged_eligible(self.strategy, head_dim=head_dim)
+    def _on_device(self, widths) -> bool:
+        """Whether the device stages take the strategy at every part's
+        width."""
+        return all(paged_eligible(self.strategy, head_dim=d) for d in widths)
 
     def _needs_scores(self) -> bool:
         """Whether the quantizer takes head scores from the K itself."""
         return (self.head_scores is None
                 and self.strategy.quantizer in ("mixhq", "duo"))
 
-    def _quantize(self, k_t, v_t, k_ctx, v_ctx, shape,
+    def _quantize(self, k_t, v_t, k_ctx, v_ctx, shape, v_shape,
                   scores_of) -> CompressedKV:
         """Stages Q and C of transformed host arrays (``scores_of()``
         gives the K the default head scores are taken from)."""
@@ -299,24 +324,28 @@ class CompressionPipeline:
             strategy=cfg, shape=shape,
             k_buckets=_encode_quantized(k_q, cfg.codec),
             v_buckets=_encode_quantized(v_q, cfg.codec),
-            k_ctx=k_ctx, v_ctx=v_ctx,
+            k_ctx=k_ctx, v_ctx=v_ctx, v_shape=_v_shape(shape, v_shape),
         )
 
     def _compress_rotated(self, kv: "DeviceKVCache") -> CompressedKV:
         """The Hadamard stage on the device, then ``quant_pack`` for a
         device-quantizable strategy or the numpy quantizer otherwise."""
         cfg = self.strategy
-        pad = _next_pow2(kv.head_dim)
-        ctx = {"orig_dim": kv.head_dim, "pad_dim": pad, "kind": "hadamard"}
-        k_t, v_t = _rotate(kv.k, pad), _rotate(kv.v, pad)
-        if device_quantizable(cfg, head_dim=pad):
+        k_ctx, v_ctx = ({"orig_dim": d, "pad_dim": _next_pow2(d),
+                         "kind": "hadamard"}
+                        for d in (kv.head_dim, kv.v_head_dim))
+        k_t = _rotate(kv.k, k_ctx["pad_dim"])
+        v_t = _rotate(kv.v, v_ctx["pad_dim"])
+        if all(device_quantizable(cfg, head_dim=c["pad_dim"])
+               for c in (k_ctx, v_ctx)):
             return CompressedKV(
                 strategy=cfg, shape=tuple(kv.shape),
                 k_buckets=[_device_quantize(k_t, cfg.key_bits,
                                             cfg.group_size, cfg.codec)],
                 v_buckets=[_device_quantize(v_t, cfg.value_bits,
                                             cfg.group_size, cfg.codec)],
-                k_ctx=ctx, v_ctx=dict(ctx))
+                k_ctx=k_ctx, v_ctx=v_ctx,
+                v_shape=_v_shape(kv.shape, kv.v_shape))
         # The default head scores read the unrotated K: pulled beside the
         # rotated tensors when the quantizer asks for them.
         k = kv.k.float() if self._needs_scores() else None
@@ -328,21 +357,22 @@ class CompressionPipeline:
             k_h, v_h = k_t.cpu().numpy(), v_t.cpu().numpy()
             k = None if k is None else k.cpu().numpy()
         with span("encode"):
-            return self._quantize(k_h, v_h, ctx, dict(ctx),
-                                  tuple(kv.shape), lambda: k)
+            return self._quantize(k_h, v_h, k_ctx, v_ctx, tuple(kv.shape),
+                                  kv.v_shape, lambda: k)
 
     # ------------------------------------------------------------------
     def compress(self, kv: KVCache) -> CompressedKV:
         cfg = self.strategy
         if isinstance(kv, DeviceKVCache):
-            if self._on_device(kv.head_dim):
+            if self._on_device((kv.head_dim, kv.v_head_dim)):
                 return CompressedKV(
                     strategy=cfg, shape=tuple(kv.shape),
                     k_buckets=[_device_quantize(kv.k, cfg.key_bits,
                                                 cfg.group_size, cfg.codec)],
                     v_buckets=[_device_quantize(kv.v, cfg.value_bits,
                                                 cfg.group_size, cfg.codec)],
-                    k_ctx={"kind": "none"}, v_ctx={"kind": "none"})
+                    k_ctx={"kind": "none"}, v_ctx={"kind": "none"},
+                    v_shape=_v_shape(kv.shape, kv.v_shape))
             if cfg.transform == "hadamard" and not is_identity(cfg):
                 return self._compress_rotated(kv)
             kv = kv.to_host()
@@ -352,42 +382,44 @@ class CompressionPipeline:
                     [kv.k.ravel(), kv.v.ravel()]
                 ).astype(np.float16).tobytes()
                 return CompressedKV(cfg, kv.shape, [], [], {"kind": "none"},
-                                    {"kind": "none"}, identity_payload=payload)
+                                    {"kind": "none"}, identity_payload=payload,
+                                    v_shape=_v_shape(kv.shape, kv.v_shape))
 
             k_t, k_ctx = apply_transform(cfg.transform, kv.k, cfg.delta_group)
             v_t, v_ctx = apply_transform(cfg.transform, kv.v, cfg.delta_group)
             return self._quantize(k_t, v_t, k_ctx, v_ctx, kv.shape,
-                                  lambda: kv.k)
+                                  kv.v_shape, lambda: kv.k)
 
     # ------------------------------------------------------------------
     def decompress(self, comp: CompressedKV) -> KVCache:
         cfg = comp.strategy
+        v_dims = comp.v_dims
         if self.device is not None and comp.identity_payload is None:
-            if paged_eligible(cfg, head_dim=comp.shape[3]):
+            if self._on_device((comp.shape[3], v_dims[3])):
                 return DeviceKVCache(
                     _device_dequantize(comp.k_buckets[0], comp.shape,
                                        cfg.codec, self.device),
-                    _device_dequantize(comp.v_buckets[0], comp.shape,
+                    _device_dequantize(comp.v_buckets[0], v_dims,
                                        cfg.codec, self.device))
             if comp.k_ctx.get("kind") == "hadamard":
                 return DeviceKVCache(
                     self._restore_rotated(cfg, comp.k_buckets, comp.shape,
                                           comp.k_ctx),
-                    self._restore_rotated(cfg, comp.v_buckets, comp.shape,
+                    self._restore_rotated(cfg, comp.v_buckets, v_dims,
                                           comp.v_ctx))
         with span("unpack"):
             if comp.identity_payload is not None:
-                n = int(np.prod(comp.shape))
+                n, nv = int(np.prod(comp.shape)), int(np.prod(v_dims))
                 flat = np.frombuffer(comp.identity_payload, dtype=np.float16,
-                                     count=2 * n).astype(np.float32)
+                                     count=n + nv).astype(np.float32)
                 k = flat[:n].reshape(comp.shape)
-                v = flat[n:].reshape(comp.shape)
+                v = flat[n:].reshape(v_dims)
                 return KVCache(k, v)
 
             # The quantizer operated on *transformed* tensors whose channel
             # dim may have been padded (hadamard); recover that shape.
             k_shape = self._transformed_shape(comp.shape, comp.k_ctx)
-            v_shape = self._transformed_shape(comp.shape, comp.v_ctx)
+            v_shape = self._transformed_shape(v_dims, comp.v_ctx)
             k_q = _decode_quantized(comp.k_buckets, k_shape, cfg.codec)
             v_q = _decode_quantized(comp.v_buckets, v_shape, cfg.codec)
             k_t = k_q.dequantize()

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import is_mla
 from repro_torch.core.kvcache import KVCache
 from repro_torch.core.pipeline import CompressionPipeline, DeviceKVCache
 from repro_torch.core.strategy import StrategyConfig, is_identity
@@ -185,17 +186,23 @@ def init_paged_pools(cfg, num_pages: int, page_size: int, group: int,
     from repro_torch.models.transformer import init_cache
 
     pool = init_cache(cfg, num_pages, max_len=page_size, device=device)
+    # MLA's latent layout holds no quant-resident pages
+    # (``strategy.quant_resident``): its code and scale pools are empty.
+    q_pages = 0 if is_mla(cfg) else num_pages
+
+    def quant(t, width, dtype):
+        """A zero pool like ``t`` (a stacked block leads with its layer
+        axis) with ``q_pages`` pages of ``width`` channels."""
+        return torch.zeros(t.shape[:-4] + (q_pages,) + t.shape[-3:-1]
+                           + (width,), dtype=dtype, device=t.device)
 
     def like(fn):
         return {part: {name: {key: fn(t) for key, t in c.items()}
                        for name, c in pool[part].items()}
                 for part in ("prefix", "blocks")}
 
-    qcodes = like(lambda t: torch.zeros(t.shape, dtype=torch.int8,
-                                        device=t.device))
-    qscales = like(lambda t: torch.zeros(
-        t.shape[:-1] + (t.shape[-1] // group,), dtype=torch.float32,
-        device=t.device))
+    qcodes = like(lambda t: quant(t, t.shape[-1], torch.int8))
+    qscales = like(lambda t: quant(t, t.shape[-1] // group, torch.float32))
     return pool, qcodes, qscales
 
 

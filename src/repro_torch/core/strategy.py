@@ -142,6 +142,18 @@ def paged_eligible(cfg: StrategyConfig,
             and cfg.transform == "none" and cfg.codec == "none")
 
 
+def quant_resident(comp, strategy: Optional[StrategyConfig] = None) -> bool:
+    """Whether a compressed cache ``comp`` (a ``CompressedKV``), encoded
+    by ``strategy`` (default: its own), lands as quant-resident pages of
+    the paged arena: the strategy is ``paged_eligible`` at the cache's
+    width, and both parts share one shape.  MLA's latent layout
+    (``comp.v_shape`` set: the latent beside a narrower rope key) has no
+    kernel that reads its codes, so it lands as bf16 pages."""
+    return (getattr(comp, "v_shape", None) is None
+            and paged_eligible(comp.strategy if strategy is None else strategy,
+                               head_dim=comp.shape[3]))
+
+
 # ---------------------------------------------------------------------------
 # Named baselines (paper Sec. 7.1): core algorithms mapped into the pipeline.
 # ---------------------------------------------------------------------------

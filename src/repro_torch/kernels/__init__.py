@@ -17,6 +17,9 @@
                          prefix for W * Gq rows, returning (out, m, l)
   hadamard               x @ H_D with f32 accumulation, the pipeline's
                          Hadamard transform stage (compress and decompress)
+  paged_mla_attention    multi-head latent attention's absorbed decode read
+                         of the arena's latent and rope pools (DeepSeek-V2),
+                         returning (out, m, l) as the arena entries do
 
 Each kernel: CUDA C++ in ``csrc/`` built by ``build.py``, a wrapper in
 ``ops.py`` with a launch counter, and a plain PyTorch version in ``ref.py``.
@@ -28,6 +31,7 @@ from repro_torch.kernels.ops import (
     launches,
     paged_attention_arena_op,
     paged_attention_op,
+    paged_mla_attention_op,
     paged_verify_attention_arena_op,
     paged_verify_attention_op,
     quant_pack_op,
@@ -36,5 +40,6 @@ from repro_torch.kernels.ops import (
 
 __all__ = ["decode_attention_op", "dequant_unpack_op", "hadamard_op",
            "paged_attention_arena_op", "paged_attention_op",
+           "paged_mla_attention_op",
            "paged_verify_attention_arena_op", "paged_verify_attention_op",
            "quant_pack_op", "launches", "reset_launches"]

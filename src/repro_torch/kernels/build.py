@@ -60,6 +60,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                              _I, _I, _I, _I, _I, _I, _F, _P)},
     "hadamard": {
         "hadamard": (_P, _I, _F, _P, _I, _L, _I, _P)},
+    "paged_mla_attention": {
+        "paged_mla_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _P)},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -456,6 +456,80 @@ def paged_verify_attention_arena_op(
     return out, m, l
 
 
+# paged_mla_attention: the absorbed MLA decode (csrc/paged_mla_attention.cu)
+# at the published DeepSeek-V2 shape only: 16 query heads over one latent
+# head of 512 channels and a rope key of 64.  Phase A gives each (split of
+# a slot's positions, slot) a block that keeps the split's online-softmax
+# state; phase B combines the splits.  The split is the largest of
+# 256 ... 32 positions that still gives the card two blocks an SM (on the
+# H100 at 16 slots of 8.2k positions a split of 256 took 0.110 / 0.164 /
+# 0.315 ms with 2 / 8 / 16 slots live, one of 512 0.184 / 0.281 / 0.305).
+_MLA_SHAPE = (16, 512, 64)     # heads, latent, rope
+_MLA_TILE = 32                 # the kernel's positions a tile
+
+
+def _mla_split(b: int, view: int) -> int:
+    split = 256
+    while split > _MLA_TILE and b * -(-view // split) < 2 * 132:
+        split //= 2
+    return split
+
+
+def paged_mla_attention_op(
+    q_abs: torch.Tensor, q_pe: torch.Tensor, lat_pool: torch.Tensor,
+    rope_pool: torch.Tensor, block_tables: torch.Tensor,
+    kv_lens: torch.Tensor, sm_scale: float,
+    interpret: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-head latent attention's decode read of one layer of the
+    paged arena, in the absorbed form: q_abs (B, H, R) bf16 (each head's
+    nope query folded onto the latent), q_pe (B, H, P) bf16 (its rotated
+    rope query); pools (NP, PS, 1, R) latent and (NP, PS, 1, P) rope key,
+    bf16; block_tables (B, PPS) int32; kv_lens (B,) int32.  Each position
+    t < kv_lens on a page other than the scratch page 0 is seen, scored
+    against latent and rope key together and weighted onto the latent.
+    Returns (unnormalized bf16 out (B, H, R), f32 m, f32 l (B, H)) for the
+    caller's closed-form merge of the new token; a row that sees nothing
+    (a parked slot) gives m = -inf, l = 0, out = 0.  It reads no quant
+    pool: the latent layout never holds quant-resident pages
+    (``strategy.quant_resident`` refuses it)."""
+    if not _use_kernel(q_abs, interpret):
+        return ref.paged_mla_attention_ref(q_abs, q_pe, lat_pool, rope_pool,
+                                           block_tables, kv_lens, sm_scale)
+    b, h, r = q_abs.shape
+    pr = q_pe.shape[-1]
+    np_, ps = lat_pool.shape[:2]
+    pps = block_tables.shape[1]
+    dev = q_abs.device
+    if (h, r, pr) != _MLA_SHAPE or pps < 1:
+        raise ValueError(f"paged_mla_attention: H={h} R={r} P={pr} PPS={pps}"
+                         f" (the kernel takes H, R, P = {_MLA_SHAPE})")
+    _check(q_abs, "q_abs", (torch.bfloat16,), dev)
+    _check(q_pe, "q_pe", (torch.bfloat16,), dev, (b, h, pr))
+    _check(lat_pool, "lat_pool", (torch.bfloat16,), dev, (np_, ps, 1, r))
+    _check(rope_pool, "rope_pool", (torch.bfloat16,), dev, (np_, ps, 1, pr))
+    _check(block_tables, "block_tables", (torch.int32,), dev, (b, pps))
+    _check(kv_lens, "kv_lens", (torch.int32,), dev, (b,))
+    _check_aligned("paged_mla_attention", lat_pool=lat_pool,
+                   rope_pool=rope_pool)
+    split = _mla_split(b, pps * ps)
+    n_split = -(-(pps * ps) // split)
+    ws_acc = torch.empty(b * n_split * h * r, dtype=torch.float32,
+                         device=dev)
+    ws_ml = torch.empty(b * n_split * h * 2, dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, r), dtype=torch.bfloat16, device=dev)
+    m = torch.empty((b, h), dtype=torch.float32, device=dev)
+    l = torch.empty((b, h), dtype=torch.float32, device=dev)
+    _launch("paged_mla_attention", "paged_mla_attention", dev,
+            q_abs.data_ptr(), q_pe.data_ptr(), lat_pool.data_ptr(),
+            rope_pool.data_ptr(), block_tables.data_ptr(),
+            kv_lens.data_ptr(), ws_acc.data_ptr(), ws_ml.data_ptr(),
+            out.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, r, pr, pps, ps,
+            split, float(sm_scale))
+    paged_mla_attention_op.launches += 1
+    return out, m, l
+
+
 def hadamard_op(x: torch.Tensor, out_dtype: Optional[torch.dtype] = None,
                 interpret: Optional[bool] = None) -> torch.Tensor:
     """Blockwise Hadamard transform, the Pallas kernel's function:
@@ -487,7 +561,7 @@ def hadamard_op(x: torch.Tensor, out_dtype: Optional[torch.dtype] = None,
 KERNEL_OPS = (quant_pack_op, dequant_unpack_op, decode_attention_op,
               paged_attention_op, paged_attention_arena_op,
               paged_verify_attention_op, paged_verify_attention_arena_op,
-              hadamard_op)
+              hadamard_op, paged_mla_attention_op)
 for _op in KERNEL_OPS:
     _op.launches = 0
 

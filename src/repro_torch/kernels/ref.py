@@ -425,3 +425,34 @@ def paged_verify_attention_arena_ref(
     out, m, l = _empty_rows(out.to(torch.bfloat16), m, l, seen)
     return (out.reshape(b, hkv, gq, w, d), m.reshape(b, hkv, gq, w),
             l.reshape(b, hkv, gq, w))
+
+
+def paged_mla_attention_ref(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                            lat_pool: torch.Tensor, rope_pool: torch.Tensor,
+                            block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                            sm_scale: float):
+    """The absorbed MLA decode read of one layer of the paged arena:
+    q_abs (B, H, R) and q_pe (B, H, P) bf16; pools (NP, PS, 1, R) latent
+    and (NP, PS, 1, P) rope key, bf16; block_tables (B, PPS) int32;
+    kv_lens (B,) int32.  Position t of slot b is seen when t < kv_lens[b]
+    and its page is not the scratch page 0 (a parked row sees nothing).
+    Scores (q_abs . latent + q_pe . rope) * sm_scale in f32, p = exp(s -
+    m) in f32, l = sum p, out = sum p * latent (the value) in f32, rounded
+    to bf16.  Returns (unnormalized bf16 out (B, H, R), f32 m, f32 l
+    (B, H)); a row that sees nothing gives m = -inf, l = 0, out = 0."""
+    b, h, r = q_abs.shape
+    bt = block_tables.long()
+    lat = lat_pool[bt].reshape(b, -1, r).float()             # (B, S, R)
+    rope = rope_pool[bt].reshape(b, -1, q_pe.shape[-1]).float()
+    s_view = lat.shape[1]
+    page = bt[:, :, None].expand(-1, -1, lat_pool.shape[1]).reshape(b, -1)
+    seen = ((torch.arange(s_view, device=lat.device)[None]
+             < kv_lens.long()[:, None]) & (page != 0))           # (B, S)
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.float(), lat)
+         + torch.einsum("bhp,bsp->bhs", q_pe.float(), rope)) * sm_scale
+    s = torch.where(seen[:, None], s, float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.where(seen[:, None], torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhs,bsr->bhr", p, lat).to(torch.bfloat16)
+    return out, m, l

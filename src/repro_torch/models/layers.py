@@ -1,14 +1,14 @@
 """Transformer layers in PyTorch: the JAX package's ``models/layers.py``.
 
-RMSNorm and qk-norm, RoPE and M-RoPE, GQA attention (softcap, sliding
-window) with an online-softmax chunked path and ``return_stats``, the
-attention sublayer's prefill, decode and cross-attention paths (the decode
-reads the cache read-only and merges the new token in closed form), the
-gated MLP, top-k MoE with capacity in both of the JAX package's forms
-(GShard one-hot dispatch and sorted scatter), and token embedding /
-unembedding with the final softcap.  Compute dtype is bf16 with f32
-softmax and normalisation, and every cast point is the JAX package's:
-greedy argmax flips on 1-ulp differences.
+RMSNorm and qk-norm, RoPE (plain or YaRN-scaled) and M-RoPE, GQA
+attention (softcap, sliding window) with an online-softmax chunked path
+and ``return_stats``, the attention sublayer's prefill, decode and
+cross-attention paths (the decode reads the cache read-only and merges
+the new token in closed form), the gated MLP, top-k MoE with capacity
+in both of the JAX package's forms (GShard one-hot dispatch and sorted
+scatter), and token embedding / unembedding with the final softcap.
+Compute dtype is bf16 with f32 softmax and normalisation, and every cast
+point is the JAX package's: greedy argmax flips on 1-ulp differences.
 
 The decode path reads either a dense cache ``{"k", "v"}`` (B, Smax, Hkv, D)
 or one layer of the paged arena (:class:`PagedKV`), which goes through the
@@ -16,6 +16,11 @@ Hopper ``paged_attention_arena`` kernel for one token per slot and the
 ``paged_verify_attention_arena`` kernel for the speculative verify step's
 several.  No ``scaled_dot_product_attention``
 anywhere: prefill attention and the projections are plain einsums.
+
+Multi-head latent attention (deepseek-v2, :func:`apply_mla`) has no JAX
+counterpart: its prefill attends in the expanded form, its decode in the
+absorbed form over the cached latent and rope key (the paged arena through
+the Hopper ``paged_mla_attention`` kernel).
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, is_mla, norm_topk_prob
 from repro_torch.kernels import (
     paged_attention_arena_op,
+    paged_mla_attention_op,
     paged_verify_attention_arena_op,
 )
 from repro_torch.utils import dtensor_step
@@ -67,14 +73,58 @@ def rope_frequencies(head_dim: int, theta: float,
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int32."""
-    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+def yarn_get_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor (the published DeepSeek-V2 code)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_frequencies(cfg: ModelConfig, dim: int,
+                     device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): each frequency slot i blends the
+    interpolated ``theta^(-i/(dim/2)) / factor`` and the original by a
+    linear ramp between the correction dims of ``beta_fast`` and
+    ``beta_slow`` rotations over the original context.  Computed in f64 and
+    rounded to f32, on ``device`` (no host copy: the decode step is
+    captured in a CUDA graph)."""
+    base, factor = cfg.rope_theta, cfg.yarn_factor
+    orig = cfg.yarn_original_max_position
+
+    def corr_dim(rot: float) -> float:
+        return (dim * math.log(orig / (rot * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(corr_dim(cfg.yarn_beta_fast)), 0)
+    high = min(math.ceil(corr_dim(cfg.yarn_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(dim // 2, dtype=torch.float64, device=device)
+    ramp = torch.clamp((i - low) / (high - low), 0, 1)
+    extra = 1.0 / base ** (2 * i / dim)
+    return (extra / factor * ramp + extra * (1 - ramp)).float()
+
+
+def rope_inv_freq(cfg: ModelConfig, dim: int, device=None) -> torch.Tensor:
+    """The inverse frequencies of a ``dim``-wide rotation under ``cfg``:
+    YaRN's where the config scales RoPE, else plain."""
+    if cfg.yarn_factor > 1:
+        return yarn_frequencies(cfg, dim, device)
+    return rope_frequencies(dim, cfg.rope_theta, device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               inv_freq: Optional[torch.Tensor] = None,
+               mscale: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int32.  ``inv_freq`` overrides
+    ``theta``'s frequencies (YaRN), ``mscale`` multiplies cos and sin."""
+    freqs = (rope_frequencies(x.shape[-1], theta, device=x.device)
+             if inv_freq is None else inv_freq)
     angles = positions[..., None].float() * freqs          # (B, S, D/2)
     # f32 cos/sin, correctly rounded (through f64; the table is tiny)
     cos = torch.cos(angles.double()).float()[:, :, None, :]
     sin = torch.sin(angles.double()).float()[:, :, None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     return _rotate(x, cos, sin)
 
 
@@ -177,13 +227,16 @@ def multihead_attention(
     kv_valid: Optional[torch.Tensor] = None,
     chunk: int = ATTN_CHUNK,
     return_stats: bool = False,
+    scale: Optional[float] = None,
 ):
     """GQA attention; direct for short KV and single-query decode, chunked
-    online softmax over the KV axis otherwise."""
+    online softmax over the KV axis otherwise.  v may be narrower than q
+    and k (MLA); ``scale`` defaults to 1/sqrt(D)."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
     g = hq // hkv
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
 
     qg = q.reshape(b, sq, hkv, g, dh).to(COMPUTE_DTYPE)
     k = k.to(COMPUTE_DTYPE)
@@ -204,14 +257,14 @@ def multihead_attention(
             return out, m, l  # out UNNORMALISED (b,h,g,q,dh)
         probs = torch.softmax(scores, dim=-1)
         out = _einsum_bf16("bhgqk,bkhd->bqhgd", probs, v)
-        return out.reshape(b, sq, hq, dh)
+        return out.reshape(b, sq, hq, dv)
 
     # ---- chunked online softmax over KV ----
     n_chunks = sk // chunk
     assert sk % chunk == 0, (sk, chunk)
     m_run = torch.full((b, hkv, g, sq), float("-inf"), device=q.device)
     l_run = torch.zeros((b, hkv, g, sq), device=q.device)
-    acc = torch.zeros((b, hkv, g, sq, dh), dtype=COMPUTE_DTYPE,
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=COMPUTE_DTYPE,
                       device=q.device)
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
@@ -231,12 +284,13 @@ def multihead_attention(
     if return_stats:
         return acc, m_run, l_run
     out = acc / torch.clamp(l_run, min=1e-30)[..., None].to(COMPUTE_DTYPE)
-    out = out.movedim(3, 1)  # (b, sq, hkv, g, dh)
-    return out.reshape(b, sq, hq, dh)
+    out = out.movedim(3, 1)  # (b, sq, hkv, g, dv)
+    return out.reshape(b, sq, hq, dv)
 
 
 def dense_decode_attention(q, k, v, ck, cv, cache_pos, *, window: int,
-                           softcap: float, k_base: int = 0, combine=None):
+                           softcap: float, k_base: int = 0, combine=None,
+                           scale: Optional[float] = None):
     """The decode step's attention over a dense cache: q, k, v (B, S, ·, D)
     the S new tokens at positions cache_pos .. cache_pos+S-1, ck / cv
     (B, Smax, Hkv, D) the cache read-only; returns (B, S, H, D).  The
@@ -244,7 +298,8 @@ def dense_decode_attention(q, k, v, ck, cv, cache_pos, *, window: int,
     closed form (``_merge_new_tokens``).  ``k_base`` is the position of
     the cache's first row and ``combine`` reduces the statistics across
     a cache split along its positions (both for a rank's slice of a
-    sharded cache, ``utils/dtensor_step.py``)."""
+    sharded cache, ``utils/dtensor_step.py``).  ``scale`` as
+    :func:`multihead_attention`'s."""
     s = q.shape[1]
     offs = torch.arange(s, dtype=torch.int32, device=q.device)
     if cache_pos.dim() == 1:
@@ -256,34 +311,36 @@ def dense_decode_attention(q, k, v, ck, cv, cache_pos, *, window: int,
     out_old, m_old, l_old = multihead_attention(
         q, ck, cv, q_positions=q_pos, k_positions=k_pos, causal=True,
         window=window, softcap=softcap, kv_valid=cache_pos,
-        return_stats=True,
+        return_stats=True, scale=scale,
     )  # (b,h,g,S,dh), (b,h,g,S), (b,h,g,S)
     if combine is not None:
         out_old, m_old, l_old = combine(out_old, m_old, l_old)
     return _merge_new_tokens(q, k, v, out_old, m_old, l_old, window=window,
-                             softcap=softcap)
+                             softcap=softcap, scale=scale)
 
 
 def _merge_new_tokens(q, k, v, out_old, m_old, l_old, *, window: int,
-                      softcap: float):
+                      softcap: float, scale: Optional[float] = None):
     """The S new tokens' (k, v) merged into the cache's online-softmax
     statistics (unnormalised output (b, h, g, S, dh), max and
     denominator (b, h, g, S)); returns the attention output (B, S, H,
     D).  S > 1 (the verify step) attends among the new tokens under an
-    intra-block causal mask."""
+    intra-block causal mask.  v may be narrower than q and k (MLA's
+    latent); ``scale`` as :func:`multihead_attention`'s."""
     b, s, h, hd = q.shape
     hkv = k.shape[2]
+    dv = v.shape[-1]
     g = h // hkv
     offs = torch.arange(s, dtype=torch.int32, device=q.device)
     qg = q.reshape(b, s, hkv, g, hd)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     if s == 1:
         s_new = _einsum_bf16("bqhgd,bqhd->bhgq", qg, k).float()
         s_new = _softcap(s_new * scale, softcap)
         m_new = torch.maximum(m_old, s_new)
         alpha = torch.exp(m_old - m_new)
         p_new = torch.exp(s_new - m_new)
-        v_b = v.reshape(b, 1, hkv, 1, hd).permute(0, 2, 3, 1, 4)
+        v_b = v.reshape(b, 1, hkv, 1, dv).permute(0, 2, 3, 1, 4)
         num = (out_old.float() * alpha[..., None]
                + p_new[..., None] * v_b.float())
         den = l_old * alpha + p_new
@@ -306,15 +363,17 @@ def _merge_new_tokens(q, k, v, out_old, m_old, l_old, *, window: int,
         num = out_old.float() * alpha[..., None] + pv
         den = l_old * alpha + p_blk.sum(dim=-1)
     out = num / torch.clamp(den, min=1e-30)[..., None]
-    out = out.to(COMPUTE_DTYPE).movedim(3, 1)  # (b, S, h, g, dh)
-    return out.reshape(b, s, hkv * g, hd)
+    out = out.to(COMPUTE_DTYPE).movedim(3, 1)  # (b, S, h, g, dv)
+    return out.reshape(b, s, hkv * g, dv)
 
 
 @dataclass
 class PagedKV:
     """One attention layer's view of the paged decode arena: bf16 fp pools
     and int8 code / f32 per-channel scale pools, all (P, PS, Hkv, D), with
-    the step's block tables (B, PPS) and quant-resident lengths (B,)."""
+    the step's block tables (B, PPS) and quant-resident lengths (B,).  An
+    MLA layer's ``k`` pools hold the latent (P, PS, 1, kv_lora_rank) and
+    its ``v`` pools the rope key (P, PS, 1, qk_rope_head_dim)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -349,6 +408,9 @@ def apply_attention(
       - cross-attention: ``xattn_kv`` the precomputed (k, v) of the
         encoder output; q is not rotated and nothing is cached
     """
+    if is_mla(cfg) and xattn_kv is None:
+        return apply_mla(params, cfg, x, positions=positions, cache=cache,
+                         cache_pos=cache_pos)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     cap = cfg.attn_softcap
@@ -425,6 +487,93 @@ def apply_attention(
     return y.to(x.dtype), new_cache
 
 
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """(qk_nope + qk_rope)^-1/2, times YaRN's mscale(mscale_all_dim)^2
+    where the config scales RoPE (the published DeepSeek-V2 code)."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    if cfg.yarn_factor > 1 and cfg.yarn_mscale_all_dim:
+        m = yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+        scale = scale * m * m
+    return scale
+
+
+def apply_mla(params, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: torch.Tensor, cache=None,
+              cache_pos: Optional[torch.Tensor] = None):
+    """Multi-head latent attention (DeepSeek-V2, no query compression).
+    Returns (out, new_cache) as :func:`apply_attention`.
+
+    ``wkv_a`` projects x to the latent (``kv_lora_rank``), RMS-normed by
+    ``kv_norm``, and the rope key (``qk_rope_head_dim``, one head shared by
+    all), which RoPE rotates by halves as the port's other models do (the
+    published code de-interleaves pairs first: with seeded weights the same
+    map up to a fixed permutation of ``wq``'s and ``wkv_a``'s rope
+    columns).  The cache holds the latent under "k" (B, S, 1, rank) and the
+    rotated rope key under "v" (B, S, 1, rope).
+
+      - prefill: the expanded form, ``wkv_b`` lifting the latent to each
+        head's nope key and value, attention at qk width nope + rope;
+      - decode: the absorbed form: each head's nope query folded through
+        its ``wkv_b`` key columns onto the latent, scores over latent and
+        rope key together, the latent itself the value, then lifted by the
+        ``wkv_b`` value columns.  The paged arena reads the cache through
+        the ``paged_mla_attention`` kernel (one token a slot; the verify
+        step is refused) and the step's own token merges in closed form."""
+    if cfg.q_lora_rank is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA with query compression")
+    b, s, _ = x.shape
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    scale = mla_softmax_scale(cfg)
+    inv = rope_inv_freq(cfg, rope, device=x.device)
+    mcs = (yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+           / yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+           if cfg.yarn_factor > 1 and cfg.yarn_mscale_all_dim else 1.0)
+    xc = x.to(COMPUTE_DTYPE)
+    q = _einsum_bf16("bsd,dhk->bshk", xc, params["wq"])
+    kv = _einsum_bf16("bsd,dk->bsk", xc, params["wkv_a"])
+    c = rmsnorm({"scale": params["kv_norm"]}, kv[..., :r],
+                cfg.rmsnorm_eps)[:, :, None]                 # (B, S, 1, r)
+    q_nope = q[..., :nope]
+    q_pe = apply_rope(q[..., nope:], positions, cfg.rope_theta, inv, mcs)
+    k_pe = apply_rope(kv[..., None, r:], positions, cfg.rope_theta, inv,
+                      mcs)                                   # (B, S, 1, rope)
+    wkv_b = params["wkv_b"]                                  # (r, H, nope+v)
+    if cache is None:
+        kvb = _einsum_bf16("bsc,chk->bshk", c[:, :, 0], wkv_b)
+        k = torch.cat([kvb[..., :nope], k_pe.expand(b, s, h, rope)], dim=-1)
+        pos1 = torch.arange(s, dtype=torch.int32, device=x.device)
+        out = multihead_attention(
+            torch.cat([q_nope, q_pe], dim=-1), k, kvb[..., nope:],
+            q_positions=pos1, k_positions=pos1, causal=True, scale=scale)
+        new_cache = {"k": c, "v": k_pe}
+    else:
+        q_abs = _einsum_bf16("bshn,chn->bshc", q_nope, wkv_b[..., :nope])
+        q_cat = torch.cat([q_abs, q_pe], dim=-1)         # (B, S, H, r+rope)
+        k_new = torch.cat([c, k_pe], dim=-1)             # (B, S, 1, r+rope)
+        if isinstance(cache, PagedKV):
+            if s != 1:
+                raise NotImplementedError(
+                    f"{cfg.name}: no MLA speculative verify step")
+            slot_pos = cache_pos.expand(b) if cache_pos.dim() == 0 \
+                else cache_pos
+            o, m, l = paged_mla_attention_op(
+                q_abs[:, 0].contiguous(), q_pe[:, 0].contiguous(), cache.k,
+                cache.v, cache.block_tables, slot_pos, scale)
+            out_lat = _merge_new_tokens(
+                q_cat, k_new, c, o[:, None, :, None], m[:, None, :, None],
+                l[:, None, :, None], window=0, softcap=0.0, scale=scale)
+        else:
+            ck = torch.cat([cache["k"], cache["v"]], dim=-1)
+            out_lat = dense_decode_attention(
+                q_cat, k_new, c, ck, cache["k"], cache_pos, window=0,
+                softcap=0.0, scale=scale)
+        out = _einsum_bf16("bshc,chv->bshv", out_lat, wkv_b[..., nope:])
+        new_cache = {"k_new": c, "v_new": k_pe}
+    y = _einsum_bf16("bshk,hkd->bsd", out, params["wo"])
+    return y.to(x.dtype), new_cache
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -458,8 +607,9 @@ def _experts(params, buf: torch.Tensor, spec: str) -> torch.Tensor:
 
 def moe_route(params, cfg: ModelConfig, x: torch.Tensor):
     """The router over x (..., d): (probs (..., E) f32, top_w (..., k)
-    renormalised, top_ids (..., k)).  Ties in the probabilities (frequent:
-    the logits are a bf16 product) break as ``jax.lax.top_k`` breaks
+    renormalised unless ``cfg.norm_topk_prob`` is False, top_ids (..., k)).
+    Ties in the probabilities (frequent: the logits are a bf16 product)
+    break as ``jax.lax.top_k`` breaks
     them, lower expert index first, through a stable descending sort;
     ``torch.topk`` promises no order among equal values."""
     k = cfg.experts_per_token
@@ -467,7 +617,8 @@ def moe_route(params, cfg: ModelConfig, x: torch.Tensor):
     probs = torch.softmax(logits, dim=-1)
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_ids = vals[..., :k], ids[..., :k]
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if norm_topk_prob(cfg):
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return probs, top_w, top_ids
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig, is_mla, mlp_width
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.utils import dtensor_step
@@ -92,6 +92,23 @@ def _attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+def _mla_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Multi-head latent attention's leaves (``layers.apply_mla``)."""
+    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    return {
+        "wq": ((d, h, nope + rope), ("embed", "heads", "head_dim"),
+               1.0 / math.sqrt(d), None),
+        "wkv_a": ((d, r + rope), ("embed", None), 1.0 / math.sqrt(d), None),
+        "kv_norm": _norm_spec(r),
+        "wkv_b": ((r, h, nope + vd), (None, "heads", "head_dim"),
+                  1.0 / math.sqrt(r), None),
+        "wo": ((h, vd, d), ("heads", "head_dim", "embed"),
+               1.0 / math.sqrt(h * vd), None),
+    }
+
+
 def _mamba_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, di, n, r, kc = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
                        cfg.ssm_conv)
@@ -117,8 +134,10 @@ def _layer_specs(cfg: ModelConfig, spec: LayerSpec,
     """One layer's leaf specs, sublayer by sublayer (``_init_layer``)."""
     d, f = cfg.d_model, cfg.d_ff
     out: Dict[str, Any] = {"ln1": {"scale": _norm_spec(d)}}
-    out["mixer"] = (_attn_specs(cfg) if spec.kind == "attn"
-                    else _mamba_specs(cfg))
+    if spec.kind != "attn":
+        out["mixer"] = _mamba_specs(cfg)
+    else:
+        out["mixer"] = _mla_specs(cfg) if is_mla(cfg) else _attn_specs(cfg)
     if cross:
         out["lnx"] = {"scale": _norm_spec(d)}
         out["xattn"] = _attn_specs(cfg)
@@ -140,7 +159,7 @@ def _layer_specs(cfg: ModelConfig, spec: LayerSpec,
                 out["mlp"]["shared"] = _mlp_specs(
                     d, f * cfg.num_shared_experts)
         else:
-            out["mlp"] = _mlp_specs(d, f)
+            out["mlp"] = _mlp_specs(d, mlp_width(cfg))
     return out
 
 
@@ -583,16 +602,21 @@ def _write_rows(buf, upd, start, stacked: bool) -> None:
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                device="cuda"):
-    """Zeroed caches: bf16 K/V (B, max_len, Hkv, D) per attention layer,
-    a zeroed state per mamba layer, block layers stacked on a leading
-    ``n_blocks`` axis; whisper's are ``{"self", "cross"}``, the cross K/V
-    (B, enc_len or max_len, Hkv, D) per decoder layer."""
+    """Zeroed caches: bf16 K/V (B, max_len, Hkv, D) per attention layer
+    (MLA: the latent (B, max_len, 1, kv_lora_rank) under "k" and the rope
+    key (B, max_len, 1, qk_rope_head_dim) under "v"), a zeroed state per
+    mamba layer, block layers stacked on a leading ``n_blocks`` axis;
+    whisper's are ``{"self", "cross"}``, the cross K/V (B, enc_len or
+    max_len, Hkv, D) per decoder layer."""
     plan = plan_stack(cfg)
     hd = cfg.resolved_head_dim
+    widths = ({"k": (1, cfg.kv_lora_rank), "v": (1, cfg.qk_rope_head_dim)}
+              if is_mla(cfg) else {})
 
     def kv(keys, length, n=None):
-        full = ((n,) if n else ()) + (batch, length, cfg.kv_heads, hd)
-        return {k: torch.zeros(full, dtype=COMPUTE_DTYPE, device=device)
+        lead = ((n,) if n else ()) + (batch, length)
+        return {k: torch.zeros(lead + widths.get(k, (cfg.kv_heads, hd)),
+                               dtype=COMPUTE_DTYPE, device=device)
                 for k in keys}
 
     def layer_cache(spec, n=None):

@@ -496,10 +496,11 @@ class ClusterRuntime:
         def _fused(strategy) -> bool:
             if not self.cfg.paged:
                 return False
-            from repro_torch.core.strategy import paged_eligible
+            from repro_torch.core.strategy import paged_eligible, quant_resident
             comp = e.payload[0]
-            head_dim = comp.shape[3] if hasattr(comp, "shape") else None
-            return paged_eligible(strategy, head_dim=head_dim)
+            if not hasattr(comp, "shape"):
+                return paged_eligible(strategy)
+            return quant_resident(comp, strategy)
 
         stored = TierFetch(variant="stored", wire_bytes=e.wire_bytes,
                            s_dec=e.payload[2],

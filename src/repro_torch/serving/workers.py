@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import cache_parts
 from repro_torch.controller import Decision, ServiceAwareController, ServiceContext
 from repro_torch.core import codecs
 from repro_torch.core.kvcache import PageTable
@@ -51,10 +52,10 @@ from repro_torch.core.quality import (
     inject_kv_paged,
     inject_quant_pages,
 )
-from repro_torch.core.strategy import StrategyConfig, paged_eligible
+from repro_torch.core.strategy import StrategyConfig, quant_resident
 from repro_torch.serving.kvstore import TierSpec
 from repro_torch.serving.request import Request
-from repro_torch.utils.timing import count, span
+from repro_torch.utils.timing import count, count_bytes, span
 from repro_torch.utils.trees import _leaves
 
 
@@ -111,8 +112,8 @@ def quant_entry_arrays(comp: CompressedKV):
     grouped multiply, so the fused dequant is bit-for-bit equal to
     ``group_dequantize`` + materialized injection).
 
-    Only valid when ``paged_eligible(comp.strategy)``: one symmetric
-    per-token bucket per tensor, codec "none", no transform."""
+    Only valid when ``quant_resident(comp)``: one symmetric per-token
+    bucket per tensor, codec "none", no transform, one shape."""
     L, H, S, D = comp.shape
     out = []
     for wires in (comp.k_buckets, comp.v_buckets):
@@ -392,6 +393,8 @@ class PrefillWorker:
         ``(comp, ctx, decision, profile, t_compress)``."""
         with span("extract"):
             kv = extract_kv(self.model.cfg, caches, 0, upto=self.cfg.seq)
+            for name, part in zip(cache_parts(self.model.cfg), (kv.k, kv.v)):
+                count_bytes(f"kv_part_bytes.{name}", part)
         with span("select"):
             t_decode = (req.out_tokens / self.cfg.decode_tok_s
                         if self.cfg.decode_tok_s else 0.0)
@@ -660,7 +663,7 @@ class DecodeWorker:
         paged-eligible strategies) and injects fp pages/rows."""
         comp, first, s_dec = entry.payload
         if (self.cfg.paged and isinstance(comp, CompressedKV)
-                and paged_eligible(comp.strategy, head_dim=comp.shape[3])):
+                and quant_resident(comp)):
             t0 = time.perf_counter()
             (kc, ks), (vc, vs) = quant_entry_arrays(comp)
             self.ensure_arena()

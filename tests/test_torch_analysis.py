@@ -426,7 +426,7 @@ def test_kernel_contract_cuda_half(tmp_path, name, change, message):
 
 
 def test_real_kernels_package_passes():
-    """The port's kernels package: the eight exports, each with its
+    """The port's kernels package: the nine exports, each with its
     oracle, its `interpret` parameter, its library and source, and a
     `gpu`-marked test naming both."""
     from repro_torch.analysis import kernel_contract
@@ -438,7 +438,7 @@ def test_real_kernels_package_passes():
     (init,) = [f for f in project.files
                if f.rel == "src/repro_torch/kernels/__init__.py"]
     ops = [n for n in kernel_contract._exports(init) if n.endswith("_op")]
-    assert len(ops) == 8
+    assert len(ops) == 9
     (build,) = [f for f in project.files
                 if f.rel == "src/repro_torch/kernels/build.py"]
     libs, _ = kernel_contract._signatures(build)

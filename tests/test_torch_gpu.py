@@ -25,6 +25,13 @@ that split work across blocks (the attention kernels) are launched twice
 on their edge cases, and the two results must be equal bit for bit.
 A decode worker's paged one-token step replayed from its CUDA graph
 emits the plain step's tokens and writes its pages bit for bit.
+paged_mla_attention (DeepSeek-V2's absorbed decode, 16 heads over a
+512-wide latent and a 64-wide rope key) against its plain version: m
+within rtol 1e-5, l within rtol 1e-4 (8k-position f32 sums split across
+blocks and rescaled), the bf16 output within 2 ulps where it exceeds 1e-4
+of the row's l (sums that cancel set the last bits of smaller outputs),
+and two launches equal bit for bit; beside it the MHA arena entry at
+deepseek-moe-16b's decode shape keeps its bits.
 """
 import numpy as np
 import pytest
@@ -38,6 +45,7 @@ from repro_torch.kernels import (  # noqa: E402
     launches,
     paged_attention_arena_op,
     paged_attention_op,
+    paged_mla_attention_op,
     paged_verify_attention_arena_op,
     paged_verify_attention_op,
     quant_pack_op,
@@ -722,7 +730,8 @@ def test_family_runtime_launches_every_kernel(cuda, arch):
 
 
 @pytest.mark.parametrize("arch,seq", [("deepseek-moe-16b", 46),
-                                      ("gemma2-9b", 4096)])
+                                      ("gemma2-9b", 4096),
+                                      ("deepseek-v2-lite", 46)])
 def test_paged_step_graph_replays_the_plain_step(cuda, arch, seq):
     """A decode worker's one-token step, captured once as a CUDA graph and
     replayed, against the plain ``_paged_steps`` arena call on copies of
@@ -732,7 +741,9 @@ def test_paged_step_graph_replays_the_plain_step(cuda, arch, seq):
     each of the 20 steps.  Two-layer cuts at full width: deepseek's dense
     layer and an MoE layer (64 experts top-6, 2 shared, 16 x 128 MHA);
     gemma2's local layer (window 4096, crossed from step 0) and global
-    layer, cap 50.  One capture, one replay a step, and the replays add
+    layer, cap 50; deepseek-v2-lite's dense layer (10944 wide) and an MoE
+    layer over its latent and rope pages.  One capture, one replay a step,
+    and the replays add
     the captured launches to the wrappers' counters; rebinding the params
     or the pools captures again."""
     import collections
@@ -1022,3 +1033,58 @@ def test_restore_with_shardings_onto_a_cuda_mesh(cuda, tmp_path):
                         str(tmp_path / "ckpt"), str(tmp_path / "init")],
                        capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr[-3000:]
+
+
+def _mla_case(dev, seed, b, ps=16, pps=521):
+    """The published shape: H 16, latent 512, rope key 64; slot i's
+    kv_len spread over 1k-8k (row 0 the longest), the last row parked
+    (its table all the scratch page 0) where b > 2."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + b * pps
+    lat = torch.randn((n_pages, ps, 1, 512), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    rope = (torch.randn((n_pages, ps, 1, 64), generator=gen, device=dev)
+            * 2).to(torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm.reshape(b, pps).to(torch.int32)
+    lens = torch.linspace(8192, 1024, b, device=dev).round().to(torch.int32)
+    if b > 2:
+        bt[-1] = 0
+        lens[-1] = pps * ps - 1
+    q_abs = (torch.randn((b, 16, 512), generator=gen, device=dev)
+             * 0.05).to(torch.bfloat16)
+    q_pe = (torch.randn((b, 16, 64), generator=gen, device=dev)
+            * 0.05).to(torch.bfloat16)
+    return q_abs, q_pe, lat, rope, bt, lens, 192 ** -0.5 * 1.5896
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_paged_mla_attention(cuda, b):
+    args = _mla_case(cuda, b, b)
+    out, m, l = paged_mla_attention_op(*args)
+    r_out, r_m, r_l = R.paged_mla_attention_ref(*args)
+    torch.testing.assert_close(m, r_m, rtol=1e-5, atol=0)
+    torch.testing.assert_close(l, r_l, rtol=1e-4, atol=0)
+    near = 1e-4 * float(r_l.max())
+    assert _bf16_ulps(out, r_out, atol=near) <= 2
+    again = paged_mla_attention_op(*args)
+    for x, y in zip((out, m, l), again):
+        assert torch.equal(x, y)
+    if b > 2:       # the parked row sees nothing
+        assert torch.all(m[-1] == float("-inf")) and torch.all(l[-1] == 0)
+        assert torch.all(out[-1] == 0)
+
+
+def test_mha_arena_keeps_its_bits_beside_the_mla_kernel(cuda):
+    """deepseek-moe-16b's decode read (B 16, Hkv 16, Gq 1, D 128) gives
+    the same bits before and after the MLA library is loaded and run on
+    the same stream, within 2 ulps of its plain version."""
+    args = _arena_case(cuda, 5, b=6, hkv=16, gq=1, d=128)
+    before = paged_attention_arena_op(*args)
+    paged_mla_attention_op(*_mla_case(cuda, 9, 3))
+    after = paged_attention_arena_op(*args)
+    for x, y in zip(before, after):
+        assert torch.equal(x, y)
+    r_out, r_m, r_l = R.paged_attention_arena_ref(*args)
+    torch.testing.assert_close(after[1], r_m, rtol=1e-5, atol=0)
+    assert _bf16_ulps(after[0], r_out) <= 2

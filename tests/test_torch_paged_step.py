@@ -37,10 +37,12 @@ def drive(cfg, params, dev, seq: int, each, page_size: int = 16,
     ``steps`` one-token steps, calling ``each(dw, active, i, named)`` at
     step ``i`` (it runs ``dw.decode_iteration(active)``).  A (landed from
     its prefill cache) and B (landed quant-resident through
-    ``fetch_entry``) join before step 0, C (a wire-restored KV) before
+    ``fetch_entry``; an MLA model's latent lands as bf16 pages, which no
+    kernel reads as codes) join before step 0, C (a wire-restored KV) before
     step 2; C is parked at steps ``PARKED``; A is released before step
     ``RELEASE`` and D joins its free slot before step ``REJOIN``.  Returns
     the worker, its slots released and its pages checked."""
+    from repro_torch.configs.base import is_mla
     from repro_torch.core.quality import _jitted_steps, extract_kv
     from repro_torch.serving.workers import (
         DecodeWorker, ModelHandle, RuntimeConfig, Slot, compress_kvs,
@@ -67,7 +69,7 @@ def drive(cfg, params, dev, seq: int, each, page_size: int = 16,
             if how == "quant":
                 dw.fetch_entry(SimpleNamespace(
                     payload=(comps[0], first, 5e8), kv_bytes=wire), idx)
-                assert dw._quant_len[idx] == seq
+                assert dw._quant_len[idx] == (0 if is_mla(cfg) else seq)
             else:
                 restored, _ = decompress_kvs(comps, device=dev)
                 dw.inject_restored(restored[0], idx)
@@ -112,8 +114,9 @@ def held_to_plain_step(cfg, params, dev, seq, page_size=16, step_hook=None):
     ``_paged_steps`` arena call on copies of the worker's pools, fed the
     host state the step starts from: the committed tokens and every
     non-scratch page equal bit for bit.  ``step_hook(dw, i, n)`` sees
-    each step's count of ``paged_attention_arena_op`` launches.  Returns
-    the worker."""
+    each step's count of paged attention launches
+    (``paged_attention_arena_op``, or ``paged_mla_attention_op`` for an
+    MLA model).  Returns the worker."""
     from repro_torch.core.quality import _paged_steps
     from repro_torch.kernels import launches
 
@@ -134,9 +137,10 @@ def held_to_plain_step(cfg, params, dev, seq, page_size=16, step_hook=None):
             dw._block_tables(), dw._quant_len.copy(),
             dw._last_tok[:, None].copy(), dw._positions.copy(), mask)]
         pools = [clone(t) for t in (dw._arena, dw._qcodes, dw._qscales)]
-        n0 = launches()["paged_attention_arena_op"]
+        ops = ("paged_attention_arena_op", "paged_mla_attention_op")
+        n0 = sum(launches()[op] for op in ops)
         dw.decode_iteration(active)
-        n = launches()["paged_attention_arena_op"] - n0
+        n = sum(launches()[op] for op in ops) - n0
         want, _ = arena(params, *pools, *state)
         want = want.cpu().numpy()
         assert [s.toks[-1] for s in active] == [int(want[s.idx])
@@ -191,12 +195,14 @@ def test_staged_inputs_are_the_host_state_of_each_step(tiny):
 
 
 @pytest.mark.parametrize("arch", ["tiny-lm", "deepseek-moe-16b-reduced",
-                                  "gemma2-9b-reduced"])
+                                  "gemma2-9b-reduced",
+                                  "deepseek-v2-lite-reduced"])
 def test_eager_step_through_the_staging_equals_the_plain_step(arch):
     """The worker's step on the CPU (eager, through the static inputs)
     emits the plain arena call's tokens and writes the same pages, at
     every step of :func:`drive`: the dense-then-MoE period of deepseek's
-    cut, gemma2's softcap and window 16 crossed by 30-token prompts."""
+    cut, gemma2's softcap and window 16 crossed by 30-token prompts,
+    deepseek-v2-lite's latent and rope pages."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch)
