@@ -20,8 +20,11 @@ Hopper ``hadamard`` kernel, one in-order FMA chain per output, which is
 numpy's ``x @ h`` bit for bit): a ``device_quantizable`` strategy feeds the
 rotated tensor straight to ``quant_pack``, any other pulls it to the host
 for the numpy quantizer; a pipeline given a ``device`` inverts it there.
-The wire form is the host path's byte for byte; every other strategy
-takes the numpy stages.
+The identity profile's codec runs on the device too: device KV is cast
+to fp16 there and copied once to the host (through pinned memory on
+CUDA), and a pipeline given a ``device`` copies the fp16 payload back
+once and widens it there.  The wire form is the host path's byte for
+byte; every other strategy takes the numpy stages.
 
 The two parts of a cache (:class:`KVCache` ``k`` and ``v``) go through
 every stage part by part, each at its own width: K under ``key_bits`` and
@@ -242,6 +245,54 @@ def _rotate(x: torch.Tensor, pad_dim: int) -> torch.Tensor:
         x.shape[:-1] + (pad_dim,))
 
 
+def _staging(nbytes: int, device) -> torch.Tensor:
+    """``nbytes`` of host memory for one copy of the identity codec,
+    pinned when ``device`` is CUDA.  Pinned blocks come from PyTorch's
+    caching host allocator, which hands a freed block to the next request
+    of its size (rounded up to a power of two): past the first request
+    of a size no request pins memory.  Each direction copies out of the block before
+    it returns, so no payload aliases it."""
+    pin = torch.device(device).type == "cuda"
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+
+
+def _identity_payload(kv: "DeviceKVCache") -> bytes:
+    """The identity profile's payload of device KV: K then V, each in its
+    own shape's order, cast to fp16 on their device (round to nearest
+    even, as numpy's ``astype``), copied once to the host, then into
+    bytes of the payload's own."""
+    k, v = kv.k.reshape(-1), kv.v.reshape(-1)
+    n = k.numel()
+    with span("to_host"):
+        flat = torch.empty(n + v.numel(), dtype=torch.float16,
+                           device=k.device)
+        flat[:n].copy_(k)
+        flat[n:].copy_(v)
+        count_bytes("to_host_bytes", flat)
+        host = _staging(2 * flat.numel(), k.device).view(torch.float16)
+        host.copy_(flat)        # waits for the copy: one a cold request
+    with span("encode"):
+        return host.numpy().tobytes()
+
+
+def _identity_restore(comp: "CompressedKV", device) -> "DeviceKVCache":
+    """Inverse of :func:`_identity_payload`: the fp16 payload copied into
+    staging memory, then once to ``device``, widened to f32 there."""
+    n, nv = int(np.prod(comp.shape)), int(np.prod(comp.v_dims))
+    with span("unpack"):
+        host = _staging(2 * (n + nv), device)
+        host.numpy()[:] = np.frombuffer(comp.identity_payload, np.uint8,
+                                        count=host.numel())
+        host = host.view(torch.float16)
+    with span("to_device"):
+        count_bytes("to_device_bytes", host)
+        # lint: sync-ok(identity decompress - one fp16 copy of the payload from pinned memory a landed request)
+        flat = host.to(device)
+    flat = flat.float()
+    return DeviceKVCache(flat[:n].reshape(comp.shape),
+                         flat[n:].reshape(comp.v_dims))
+
+
 def _v_shape(shape, v_shape) -> Optional[Tuple[int, int, int, int]]:
     """``CompressedKV.v_shape``: None where both parts have one shape, so
     an MHA payload is what it was before parts could differ."""
@@ -373,7 +424,12 @@ class CompressionPipeline:
                                                 cfg.group_size, cfg.codec)],
                     k_ctx={"kind": "none"}, v_ctx={"kind": "none"},
                     v_shape=_v_shape(kv.shape, kv.v_shape))
-            if cfg.transform == "hadamard" and not is_identity(cfg):
+            if is_identity(cfg):
+                return CompressedKV(cfg, tuple(kv.shape), [], [],
+                                    {"kind": "none"}, {"kind": "none"},
+                                    identity_payload=_identity_payload(kv),
+                                    v_shape=_v_shape(kv.shape, kv.v_shape))
+            if cfg.transform == "hadamard":
                 return self._compress_rotated(kv)
             kv = kv.to_host()
         with span("encode"):
@@ -394,7 +450,9 @@ class CompressionPipeline:
     def decompress(self, comp: CompressedKV) -> KVCache:
         cfg = comp.strategy
         v_dims = comp.v_dims
-        if self.device is not None and comp.identity_payload is None:
+        if self.device is not None:
+            if comp.identity_payload is not None:
+                return _identity_restore(comp, self.device)
             if self._on_device((comp.shape[3], v_dims[3])):
                 return DeviceKVCache(
                     _device_dequantize(comp.k_buckets[0], comp.shape,

@@ -31,7 +31,10 @@ within rtol 1e-5, l within rtol 1e-4 (8k-position f32 sums split across
 blocks and rescaled), the bf16 output within 2 ulps where it exceeds 1e-4
 of the row's l (sums that cancel set the last bits of smaller outputs),
 and two launches equal bit for bit; beside it the MHA arena entry at
-deepseek-moe-16b's decode shape keeps its bits.
+deepseek-moe-16b's decode shape keeps its bits.  The identity profile's
+codec on the card (fp16 cast on the device, one copy each way through
+pinned memory) keeps the host path's payload and landed pages bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -1088,3 +1091,78 @@ def test_mha_arena_keeps_its_bits_beside_the_mla_kernel(cuda):
     r_out, r_m, r_l = R.paged_attention_arena_ref(*args)
     torch.testing.assert_close(after[1], r_m, rtol=1e-5, atol=0)
     assert _bf16_ulps(after[0], r_out) <= 2
+
+
+# ---------------------------------------------------------------------------
+# the identity profile's codec on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-lite"])
+def test_identity_device_codec_keeps_the_host_paths_bits(cuda, arch):
+    """At the cells' cache widths (MHA 16 x 128 a part; MLA's 512-wide
+    latent and 64-wide rope key) and 512 positions: the identity payload
+    is the old host path's (``to_host()``, numpy's concatenate and fp16
+    cast) by digest, fp16's overflow and subnormal edges included; the
+    paged arena landed from its restore on the card is bit-equal to one
+    landed from the host-decoded arrays; and a second, shorter payload
+    made through the same pinned block leaves the first unchanged."""
+    import hashlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as P
+    from repro_torch.core.profiles import IDENTITY_PROFILE
+    from repro_torch.core.quality import (
+        _attn_layers, init_paged_pools, inject_kv_paged)
+
+    cfg, strategy, seq, page = get_config(arch), IDENTITY_PROFILE.strategy, \
+        512, 16
+    part, name, _ = _attn_layers(cfg)[0]
+    leaf = init_paged_pools(cfg, 2, page, 64, device=cuda)[0][part][name]
+    n_layers = len(_attn_layers(cfg))
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    k, v = ((torch.randn((n_layers, *leaf[key].shape[-2:-1], seq,
+                          leaf[key].shape[-1]), generator=gen, device=cuda)
+             * 3).to(torch.bfloat16) for key in ("k", "v"))
+    edges = torch.tensor([65504.0, 65520.0, -7e4, 2.0 ** -24, 2.0 ** -25,
+                          3 * 2.0 ** -25, -(2.0 ** -26), -0.0, 1e-9],
+                         device=cuda).to(torch.bfloat16)
+    for t in (k, v):
+        t.view(-1)[:edges.numel()] = edges
+
+    def host_payload(kv):
+        h = kv.to_host()
+        with np.errstate(over="ignore"):
+            return np.concatenate([h.k.ravel(), h.v.ravel()]) \
+                .astype(np.float16).tobytes()
+
+    def digest(b):
+        return hashlib.sha256(b).hexdigest()
+
+    kv = P.DeviceKVCache(k, v)
+    first = P.CompressionPipeline(strategy).compress(kv)
+    want = digest(host_payload(kv))
+    assert digest(first.identity_payload) == want
+    assert P._staging(8, cuda).is_pinned()
+    # 3/4 of the positions: the same power-of-two pinned block, reused
+    short = P.DeviceKVCache(k[:, :, :seq * 3 // 4].contiguous(),
+                            v[:, :, :seq * 3 // 4].contiguous())
+    second = P.CompressionPipeline(strategy).compress(short)
+    assert digest(second.identity_payload) == digest(host_payload(short))
+    assert digest(first.identity_payload) == want
+    assert len(second.identity_payload) * 4 == len(first.identity_payload) * 3
+
+    pages = list(range(1, seq // page + 1))
+    landed = []
+    for restored in (P.CompressionPipeline(strategy, device=cuda)
+                     .decompress(first),
+                     P.CompressionPipeline(strategy).decompress(first)):
+        assert isinstance(restored, P.DeviceKVCache) == (not landed)
+        pool = init_paged_pools(cfg, len(pages) + 1, page, 64,
+                                device=cuda)[0]
+        landed.append(inject_kv_paged(cfg, pool, pages, restored, page))
+    got, ref = landed
+    for part in ("prefix", "blocks"):
+        for name, c in ref[part].items():
+            for key, t in c.items():
+                assert torch.equal(got[part][name][key].view(torch.int16),
+                                   t.view(torch.int16)), (part, name, key)
+    assert digest(first.identity_payload) == want

@@ -5,9 +5,13 @@ A paged-eligible strategy applied to KV held as torch tensors
 ``quant_pack_op`` (its plain version on the CPU) and decompresses through
 ``dequant_unpack_op``; the wire form — payload bytes, fp16 scales, index
 metadata, ``total_bytes()`` — must be the JAX package's host pipeline's
-byte for byte, and the restored KV its ``decompress`` bit for bit.  Every
-other strategy takes the copied numpy stages.
+byte for byte, and the restored KV its ``decompress`` bit for bit.  The
+identity profile casts device KV to fp16 on its device, to the JAX
+package's payload byte for byte.  Every other strategy takes the copied
+numpy stages.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -86,7 +90,6 @@ def test_device_path_wire_bytes_match_jax(bits, bf16_exact):
 @pytest.mark.parametrize("name,kw", [
     ("per_channel", dict(quantizer="uniform", key_bits=8, value_bits=8,
                          granularity="per_channel")),
-    ("identity", dict(key_bits=16, value_bits=16, codec="none")),
     ("zstd_per_token", dict(quantizer="uniform", key_bits=4, value_bits=4,
                             granularity="per_token", symmetric=True,
                             group_size=32, codec="zstd3")),
@@ -112,6 +115,70 @@ def test_other_strategies_take_the_host_path(name, kw):
     ref = JPipe(jcfg).decompress(want)
     np.testing.assert_array_equal(np.asarray(restored.k), ref.k)
     np.testing.assert_array_equal(np.asarray(restored.v), ref.v)
+
+
+# fp16's edges in f32: its largest finite value, the largest that still
+# rounds to it and the first that overflows to inf, values past that, the
+# smallest normal and subnormal, subnormal and normal ties (round half to
+# even), values that vanish to a signed zero, and -0.0.  A bf16 input
+# holds the nearest bf16 of each.
+_FP16_EDGES = np.array([
+    65504.0, -65504.0, 65519.99, -65519.99, 65520.0, -65520.0, 70000.0,
+    -1e6, 3e38, 2.0 ** -14, -(2.0 ** -14), 2.0 ** -24, -(2.0 ** -24),
+    2.0 ** -25, 3 * 2.0 ** -25, -(3 * 2.0 ** -25), 5 * 2.0 ** -25,
+    1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, -(1 + 2.0 ** -11), 2049.0, 2051.0,
+    1e-10, -1e-10, -0.0, 0.0, 1.0, -2.5], np.float32)
+_IDENTITY = dict(key_bits=16, value_bits=16, codec="none")
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((3, 2, 37, 64), (3, 2, 37, 64)),     # MHA: K and V of one shape
+    ((2, 1, 37, 32), (2, 1, 37, 8)),      # MLA: the latent, the rope key
+], ids=["mha", "mla"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_identity_device_path_keeps_the_payload(shapes, dtype):
+    """The identity profile casts device KV to fp16 on its device and
+    copies it once: the payload is the JAX package's ``identity_payload``
+    byte for byte, fp16's rounding and overflow edges included, and the
+    KV a pipeline given a device restores from it (f32 on that device) is
+    the host path's bit for bit."""
+    gen = torch.Generator().manual_seed(len(shapes[1]) + shapes[1][3])
+    k, v = (torch.randn(s, generator=gen) * 4 for s in shapes)
+    for t in (k, v):
+        t.view(-1)[:_FP16_EDGES.size] = torch.from_numpy(_FP16_EDGES)
+    k, v = k.to(dtype), v.to(dtype)
+    kv = DeviceKVCache(k, v)
+    cfg = PStrategy(**_IDENTITY)
+
+    got = CompressionPipeline(cfg).compress(kv)
+    host = types.SimpleNamespace(k=k.float().numpy(), v=v.float().numpy(),
+                                 shape=tuple(shapes[0]))
+    with np.errstate(over="ignore"):      # the edges past 65519.99
+        want = JPipe(StrategyConfig(**_IDENTITY)).compress(host)
+    assert got.identity_payload == want.identity_payload
+    assert got.total_bytes() == want.total_bytes()
+    assert got.v_dims == tuple(shapes[1])
+    edges = np.frombuffer(got.identity_payload, np.float16,
+                          count=_FP16_EDGES.size)
+    assert np.isinf(edges).any() and (edges == 0).any()
+
+    restored = CompressionPipeline(cfg, device="cpu").decompress(got)
+    assert isinstance(restored, DeviceKVCache)
+    assert restored.k.dtype == restored.v.dtype == torch.float32
+    ref = CompressionPipeline(cfg).decompress(got)
+    assert not isinstance(ref, DeviceKVCache)
+    for a, b in ((restored.k, ref.k), (restored.v, ref.v)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
+    if shapes[0] == shapes[1]:
+        jref = JPipe(StrategyConfig(**_IDENTITY)).decompress(want)
+        np.testing.assert_array_equal(_bits(ref.k), _bits(jref.k))
+        np.testing.assert_array_equal(_bits(ref.v), _bits(jref.v))
 
 
 def test_device_kv_cache_accounts_like_host():

@@ -213,7 +213,7 @@ def test_decode_iteration_children_tile_it(tiny):
         assert 0 <= (parent.t1_ns - parent.t0_ns) - covered
 
 
-def test_identity_copies_its_f32_kv_to_the_host(tiny):
+def test_identity_copies_its_kv_once_each_way_in_fp16(tiny):
     tr = Tracer()
     _serve(tiny, "identity", tr)
     m = tiny[0]
@@ -224,12 +224,13 @@ def test_identity_copies_its_f32_kv_to_the_host(tiny):
         for name in ("to_host_bytes", "to_device_bytes"):
             got = [c.value for c in tr.counts
                    if c.name == name and c.rid == rid]
-            assert sum(got) == 2 * n * 4, name
+            assert got == [2 * n * 2], name
     paths = {tr.path(i) for i, s in enumerate(tr.spans)
-             if s.name in ("encode", "unpack", "to_device")}
-    assert paths == {"step/start/compress/encode",
+             if s.name in ("to_host", "encode", "unpack", "to_device")}
+    assert paths == {"step/start/compress/to_host",
+                     "step/start/compress/encode",
                      "step/start/decompress/unpack",
-                     "step/start/inject/to_device"}
+                     "step/start/decompress/to_device"}
 
 
 @pytest.mark.parametrize("kind", ["int8", "identity"])
